@@ -16,14 +16,29 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      stream is ingested again through the flat layout on the card and
      through the plain versions on the CPU (which the CPU tests hold against
      the JAX package): counters and ARE must be identical.
-  D. Reachability: the closure of the ingested sketch's connectivity layers
-     through ``reach_step`` (one launch per squaring), 10,000 sampled pairs
-     answered and compared with the CPU plain closure.
+  F. The paper's comparison (Fig. 7 at 512 KB): the same driver at the
+     same flags with ``--sketch countmin|gsketch|tcm|gmatrix``, and with
+     ``--sketch kmatrix --sketch-backend flat``, on ``cuda`` and on the
+     CPU.  Counters and ARE must be identical; every TCM/gMatrix run must
+     launch ``matrix_ingest`` once per batch (52) and ``matrix_lookup`` once
+     (its 10,000 evaluation queries).  One line per sketch (ARE, M edges/s
+     end to end, launches) and the ARE ordering, the width-class kMatrix's
+     from phase C; the ordering is printed, not gated.
+  D. Reachability: the closure of the kMatrix sketch's connectivity layers
+     and of the gMatrix table through ``reach_step`` (one launch per
+     squaring), 10,000 sampled pairs each, compared with the CPU plain
+     closure.  Then a checkpoint round trip on the card through the
+     driver: the main path with ``--ckpt-dir --steps-per-ckpt 26``, then
+     ``--resume`` from the batch-26 checkpoint; both must equal the
+     uninterrupted phase-C sketch.
   E. A profile of the main path's ingest loop: host time per batch for
      making, copying and issuing it, the device's busy and idle shares, and
      the top operations by device and host time.
   B. Each kernel against its plain version on the card, on the inputs the
-     main path gives it plus one wide shape: bit-equal results, and times
+     main paths give it (kMatrix classes and the P = 1 gMatrix table for
+     ``matrix_ingest``, the gMatrix evaluation queries for ``matrix_lookup``,
+     the kMatrix and gMatrix closures for ``reach_step``) plus one wide
+     shape each: bit-equal results, and times
      of the kernel, the plain version and one PyTorch library call computing
      the same function, beside the least time the card could take
      (``bound_ms``).  ``ms`` keys are CUDA-event times of back-to-back calls
@@ -31,14 +46,18 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      the launched kernels' own time from ``torch.profiler``.
 
 The last lines are one ``{"kernels": [...]}`` JSON object and then
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is summed
+over the paths that run it, each path counted from zero just before it
+runs (``launches_by_path``).
 """
 from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -53,6 +72,12 @@ SLICE_FLAGS = ["--dataset", "cit-HepPh", "--scale", "1.0", "--budget-kb", "512",
                "--depth", "7", "--batch-size", "8192", "--partitioner", "banded",
                "--eval-queries", "10000", "--sketch-backend", "width_class"]
 REACH_PAIRS = 10_000
+# phase F's runs: the four baselines, and kMatrix in the flat layout, whose
+# partitions keep their planned widths (the width-class layout of phase C
+# rounds them down to powers of two and so holds fewer counters)
+COMPARED = {kind: ["--sketch", kind]
+            for kind in ("countmin", "gsketch", "tcm", "gmatrix")}
+COMPARED["kmatrix-flat"] = ["--sketch", "kmatrix", "--sketch-backend", "flat"]
 
 
 def card_line() -> str:
@@ -128,6 +153,37 @@ class Smoke:
             return None
 
 
+KERNEL_NAMES = ("matrix_ingest", "matrix_lookup", "reach_step")
+
+
+def _wrappers() -> dict:
+    from repro_torch import kernels
+
+    return {name: getattr(kernels, name) for name in KERNEL_NAMES}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0 (just before a path)."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count (just after a path)."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def same_state(a, b) -> bool:
+    """Whether two sketches hold identical leaves and layout, wherever they
+    live (export_state copies every leaf to the host)."""
+    from repro_torch import interop
+
+    al, ast_ = interop.export_state(a)
+    bl, bst = interop.export_state(b)
+    return ast_ == bst and sorted(al) == sorted(bl) and all(
+        al[k].dtype == bl[k].dtype and (al[k] == bl[k]).all() for k in al)
+
+
 def phase_build(smoke):
     from repro_torch.kernels import build
 
@@ -147,12 +203,10 @@ def phase_build(smoke):
 
 def phase_slice(smoke):
     torch = smoke.torch
-    from repro_torch import interop
     from repro_torch.core import EdgeBatch
     from repro_torch.core import kmatrix as km
     from repro_torch.core import kmatrix_accel as kma
     from repro_torch.core.metrics import exact_edge_frequencies, lookup_exact
-    from repro_torch.kernels import matrix_ingest, reach_step
     from repro_torch.launch import stream_ingest
     from repro_torch.streams import sample_stream
 
@@ -161,11 +215,10 @@ def phase_slice(smoke):
     stream_ingest.inline_main(parser.parse_args(
         ["--scale", "0.03", "--eval-queries", "100", "--device", "cuda"]))
 
-    matrix_ingest.launches = reach_step.launches = 0
+    reset_launches()
     run = stream_ingest.inline_main(
         parser.parse_args([*SLICE_FLAGS, "--device", "cuda"]))
-    launches = {"matrix_ingest": matrix_ingest.launches,
-                "reach_step": reach_step.launches}
+    launches = read_launches()
     sk = run["sketch"]
     classes = sum(1 for n in sk.class_counts if n)
     print(f"  classes widths={sk.class_widths} counts={sk.class_counts} "
@@ -178,6 +231,8 @@ def phase_slice(smoke):
                 f"matrix_ingest launches == batches x classes "
                 f"({run['batches']} x {classes})")
     smoke.check(launches["reach_step"] == 0, "no reach_step launch in ingest")
+    smoke.check(launches["matrix_lookup"] == 0,
+                "no matrix_lookup launch (width-class queries are gathers)")
     rate = run["n_edges"] / run["ingest_seconds"] / 1e6
     print(f"  ingest: {run['n_edges']} edges in {run['ingest_seconds']:.4f}s "
           f"= {rate:.3f} M edges/s end to end (cuda); ARE={run['ARE']!r}")
@@ -205,51 +260,150 @@ def phase_slice(smoke):
     # the plain versions on the CPU
     cpu = stream_ingest.inline_main(
         parser.parse_args([*SLICE_FLAGS, "--device", "cpu"]))
-    gl, gs = interop.export_state(sk)
-    cl, cs = interop.export_state(cpu["sketch"])
-    same = gs == cs and sorted(gl) == sorted(cl) and all(
-        (gl[k] == cl[k]).all() for k in gl)
-    smoke.check(same, "cuda sketch == cpu plain sketch: pools, conn, "
-                      "overflow, routes, hashes")
+    smoke.check(same_state(sk, cpu["sketch"]),
+                "cuda sketch == cpu plain sketch: pools, conn, overflow, "
+                "routes, hashes")
     smoke.check(cpu["ARE"] == run["ARE"],
                 f"ARE cuda == cpu ({run['ARE']!r} vs {cpu['ARE']!r})")
     return {"run": run, "cpu": cpu, "launches": launches, "rate": rate}
 
 
-def phase_reach(smoke, sl):
+def phase_compare(smoke, sl):
+    """The paper's Fig. 7 at 512 KB on the card: every baseline, and the
+    flat-layout kMatrix, through the driver at the slice's flags, on cuda
+    and on the CPU."""
+    from repro_torch.launch import stream_ingest
+
+    parser = stream_ingest.build_parser()
+    runs, cpus, launches = {}, {}, {}
+    for kind, flags in COMPARED.items():
+        # warm-up: the kind's first-call costs stay out of the timed run
+        stream_ingest.inline_main(parser.parse_args(
+            ["--scale", "0.03", "--eval-queries", "100", *flags,
+             "--device", "cuda"]))
+        reset_launches()
+        run = stream_ingest.inline_main(parser.parse_args(
+            [*SLICE_FLAGS, *flags, "--device", "cuda"]))
+        launches[kind] = read_launches()
+        cpu = stream_ingest.inline_main(parser.parse_args(
+            [*SLICE_FLAGS, *flags, "--device", "cpu"]))
+        rate = run["n_edges"] / run["ingest_seconds"] / 1e6
+        print(f"  {kind:12s} [{type(run['sketch']).__name__}] "
+              f"counters={run['sketch'].num_counters} ARE={run['ARE']!r} "
+              f"ingest={rate:.3f} M edges/s end to end (cuda, "
+              f"{run['ingest_seconds']:.4f}s) launches={launches[kind]}")
+        smoke.check(run["batches"] == 52 and run["n_edges"] == 421_578,
+                    f"{kind}: 52 batches, 421,578 edges")
+        smoke.check(same_state(run["sketch"], cpu["sketch"]),
+                    f"{kind}: cuda counters == cpu plain counters")
+        smoke.check(run["ARE"] == cpu["ARE"] and math.isfinite(run["ARE"]),
+                    f"{kind}: ARE cuda == cpu ({run['ARE']!r})")
+        matrix = kind in ("tcm", "gmatrix")
+        expect = {"matrix_ingest": run["batches"] if matrix else 0,
+                  "matrix_lookup": 1 if matrix else 0, "reach_step": 0}
+        smoke.check(launches[kind] == expect,
+                    f"{kind}: launches {launches[kind]} == {expect}")
+        runs[kind], cpus[kind] = run, cpu
+        runs[kind]["rate"] = rate
+    smoke.check(same_state(runs["tcm"]["sketch"].replace(kind="gmatrix"),
+                           runs["gmatrix"]["sketch"]),
+                "tcm and gmatrix tables identical (same seed, as in JAX)")
+    are = {"kmatrix": sl["run"]["ARE"],
+           **{k: r["ARE"] for k, r in runs.items()}}
+    rates = {"kmatrix": sl["rate"], **{k: r["rate"] for k, r in runs.items()}}
+    order = sorted(are, key=are.get)
+    print("  ARE at 512 KB, lower is better (Fig. 7; printed, not gated): "
+          + " < ".join(f"{k} {are[k]:.4f}" for k in order))
+    print(f"  summary: {json.dumps({'ARE': are, 'M_edges_per_s': rates})}")
+    return {"runs": runs, "cpu": cpus, "launches": launches}
+
+
+def _reach_path(smoke, label, sk, sk_cpu, n, answer):
+    """Close ``sk``'s adjacency layers on the card and answer REACH_PAIRS
+    pairs of vertex ids below ``n`` through ``answer(sketch, src, dst)``;
+    hold closure and answers against the CPU plain version.  Returns the
+    path's reach_step launches."""
     torch = smoke.torch
     from repro_torch.core import queries as q
-    from repro_torch.kernels import matrix_ingest, reach_step
 
     import numpy as np
 
-    sk, sk_cpu = sl["run"]["sketch"], sl["cpu"]["sketch"]
     rng = np.random.default_rng(7)
-    n = sl["run"]["stream"].spec.n_nodes
     qs = torch.as_tensor(rng.integers(0, n, REACH_PAIRS).astype("int32"))
     qd = torch.as_tensor(rng.integers(0, n, REACH_PAIRS).astype("int32"))
-
-    matrix_ingest.launches = reach_step.launches = 0
-    closure = q.build_closure(q.closure_layers(sk))
-    answers = q.reachability_from_closure(
-        closure, q.reach_cells(sk, qs.cuda()), q.reach_cells(sk, qd.cuda()))
+    reset_launches()
+    answers = answer(sk, qs.cuda(), qd.cuda())
     torch.cuda.synchronize()
-    launches = reach_step.launches
-    steps = q._closure_steps(sk.conn_w, None)
-    print(f"  reach_step launches: {launches} (closure steps for "
-          f"w={sk.conn_w}: {steps})")
-    smoke.check(launches == steps, "reach_step launches == _closure_steps(conn_w)")
-
-    ref_closure = q.build_closure(q.closure_layers(sk_cpu))
-    ref = q.reachability_from_closure(
-        ref_closure, q.reach_cells(sk_cpu, qs), q.reach_cells(sk_cpu, qd))
-    smoke.check(torch.equal(closure.cpu(), ref_closure),
-                "kernel closure == cpu plain closure")
+    launches = read_launches()["reach_step"]
+    w = q.closure_layers(sk).shape[-1]
+    steps = q._closure_steps(w, None)
+    print(f"  {label}: reach_step launches {launches} (closure steps for "
+          f"w={w}: {steps})")
+    smoke.check(launches == steps, f"{label}: reach_step launches == "
+                                   f"_closure_steps({w}) == {steps}")
+    ref = answer(sk_cpu, qs, qd)
     smoke.check(torch.equal(answers.cpu(), ref),
-                f"{REACH_PAIRS} reachability answers equal "
+                f"{label}: {REACH_PAIRS} reachability answers == cpu plain "
                 f"({int(ref.sum())} reachable)")
+    closure = q.build_closure(q.closure_layers(sk))
+    smoke.check(torch.equal(closure.cpu(),
+                            q.build_closure(q.closure_layers(sk_cpu))),
+                f"{label}: kernel closure == cpu plain closure")
     plain = q.build_closure(q.closure_layers(sk), backend="plain")
-    smoke.check(torch.equal(plain, closure), "plain closure on cuda == kernel")
+    smoke.check(torch.equal(plain, closure),
+                f"{label}: plain closure on cuda == kernel")
+    return launches
+
+
+def _checkpoint_round_trip(smoke, sl):
+    """The driver's checkpoint path on the card: a run at the slice's flags
+    that saves every 26 batches, then ``--resume`` from the batch-26
+    checkpoint (the batch-52 one removed first).  Both runs must equal the
+    uninterrupted phase-C sketch."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core import kmatrix_accel as kma
+    from repro_torch.launch import stream_ingest
+
+    full = sl["run"]["sketch"]
+    parser = stream_ingest.build_parser()
+    with tempfile.TemporaryDirectory(prefix="kmatrix_ckpt_") as ckpt:
+        flags = [*SLICE_FLAGS, "--device", "cuda", "--ckpt-dir", ckpt,
+                 "--steps-per-ckpt", "26"]
+        saved = stream_ingest.inline_main(parser.parse_args(flags))
+        smoke.check(same_state(saved["sketch"], full)
+                    and saved["ARE"] == sl["run"]["ARE"],
+                    "run saving every 26 batches == phase-C sketch and ARE")
+        meta = store.read_meta(ckpt, 26)
+        smoke.check(meta["extra"] == {"stream_offset": 26, "seed": 0},
+                    f"checkpoint 26 holds stream offset 26 ({meta['extra']})")
+        last, _ = store.restore(ckpt, kma.empty_like(full), step=52)
+        smoke.check(same_state(last, full),
+                    "checkpoint 52 restores the phase-C sketch (bit-exact)")
+        shutil.rmtree(Path(ckpt) / f"step_{52:010d}")
+        resumed = stream_ingest.inline_main(
+            parser.parse_args([*flags, "--resume"]))
+    sk = resumed["sketch"]
+    smoke.check(resumed["batches"] == 26 and sk.conn.device.type == "cuda",
+                f"--resume ingested batches 26-51 on cuda "
+                f"(got {resumed['batches']} batches)")
+    smoke.check(same_state(sk, full) and resumed["ARE"] == sl["run"]["ARE"],
+                "26 batches + save + --resume + 26 batches == uninterrupted "
+                "52-batch sketch and ARE (bit-exact)")
+
+
+def phase_reach(smoke, sl, cmp):
+    from repro_torch.core import queries as q
+
+    n = sl["run"]["stream"].spec.n_nodes
+    launches = {
+        "kmatrix": _reach_path(
+            smoke, "kmatrix conn", sl["run"]["sketch"], sl["cpu"]["sketch"],
+            n, q.kmatrix_reachability),
+        "gmatrix": _reach_path(
+            smoke, "gmatrix table", cmp["runs"]["gmatrix"]["sketch"],
+            cmp["cpu"]["gmatrix"]["sketch"], n, q.reachability),
+    }
+    _checkpoint_round_trip(smoke, sl)
     return launches
 
 
@@ -303,24 +457,21 @@ def phase_profile(smoke, sl):
     return per_batch
 
 
-def _capture_ingest_calls(torch, sk, batch):
-    """The (pool, hi, hj, wt) inputs the main path hands ``matrix_ingest``
-    for one batch, captured from a real ingest into an empty copy."""
-    from repro_torch.core import kmatrix_accel as kma
-    from repro_torch.kernels import ops
-
+def _capture_calls(torch, module, name, fn):
+    """The tensor arguments ``fn()`` hands the kernel wrapper ``name`` of
+    ``module``, one tuple per call, captured (cloned) from a real run."""
     calls = []
-    real = ops.matrix_ingest
+    real = getattr(module, name)
 
-    def record(pool, hi, hj, wt):
-        calls.append((pool.clone(), hi.clone(), hj.clone(), wt.clone()))
-        return real(pool, hi, hj, wt)
+    def record(*args, **kwargs):
+        calls.append(tuple(a.clone() for a in args))
+        return real(*args, **kwargs)
 
-    ops.matrix_ingest = record
+    setattr(module, name, record)
     try:
-        kma.ingest(kma.empty_like(sk), batch)
+        fn()
     finally:
-        ops.matrix_ingest = real
+        setattr(module, name, real)
     torch.cuda.synchronize()
     return calls
 
@@ -393,68 +544,154 @@ def _bench_reach(smoke, reach, label):
     return row
 
 
-def phase_kernels(smoke, sl, reach_launches):
+def _bench_lookup(smoke, pool, hi, hj, label):
+    torch = smoke.torch
+    from repro_torch.kernels import matrix_lookup, matrix_lookup_plain
+
+    d, p, w, _ = pool.shape
+    c = hi.shape[2]
+    out_k = matrix_lookup(pool, hi, hj)
+    out_p = matrix_lookup_plain(pool, hi, hj)
+    torch.cuda.synchronize()
+    err = int((out_k.long() - out_p.long()).abs().max())
+    smoke.check(torch.equal(out_k, out_p), f"matrix_lookup {label} bit-equal")
+    ms = time_ms(torch, lambda: matrix_lookup(pool, hi, hj))
+    plain_ms = time_ms(torch, lambda: matrix_lookup_plain(pool, hi, hj))
+    dev = {"device_ms": device_ms(torch, lambda: matrix_lookup(pool, hi, hj)),
+           "plain_device_ms": device_ms(
+               torch, lambda: matrix_lookup_plain(pool, hi, hj)),
+           "library_device_ms": None}
+    # bytes this call's data needs: hi and hj once, out once, and each pool
+    # cell the queries address once
+    rows = torch.arange(d, device="cuda").view(d, 1, 1)
+    parts = torch.arange(p, device="cuda").view(1, p, 1)
+    cells = ((rows * p + parts) * w + hi.long()) * w + hj.long()
+    gathered = int(torch.unique(cells).numel())
+    nbytes = 2 * hi.numel() * 4 + p * c * 4 + gathered * 4
+    row = {"shape": f"pool{list(pool.shape)} hi{list(hi.shape)}",
+           "cells_gathered": gathered, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms,
+           "library_ms": None, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", **dev}
+    print(f"  matrix_lookup {label}: {json.dumps(row)}")
+    return row
+
+
+def _random_ints(torch, gen, hi, shape):
+    return torch.randint(0, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def _summary(name, source, replaces, launches, main, rows):
+    """One kernel's entry of the kernels line: ``main``'s numbers (a row, or
+    a dict summed over rows), its launches per path, and every shape.
+    ``kernel_ms`` repeats ``ms`` under the name earlier lines used."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "exact": all(r["max_abs_err"] == 0 for r in rows),
+            **{k: main[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "plain_device_ms", "library_device_ms")},
+            "kernel_ms": main["ms"],
+            "shapes": [{k: r[k] for k in ("label", "shape", "ms", "device_ms",
+                                          "plain_ms", "bound_ms")}
+                       for r in rows]}
+
+
+def phase_kernels(smoke, sl, cmp, reach_launches):
     torch = smoke.torch
     from repro_torch.core import EdgeBatch
+    from repro_torch.core import kmatrix_accel as kma
+    from repro_torch.core import matrix_sketch as ms
     from repro_torch.core import queries as q
-    from repro_torch.kernels import reach_step_plain
+    from repro_torch.kernels import ops, reach_step_plain
+    from repro_torch.streams import sample_stream
 
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 bmm yardstick
-    sk, stream = sl["run"]["sketch"], sl["run"]["stream"]
-    batch = EdgeBatch.from_numpy(*stream.batch_numpy(0), device="cuda")
-    rows = [_bench_ingest(smoke, *call, f"main path class {i}")
-            for i, call in enumerate(_capture_ingest_calls(torch, sk, batch))]
-    smoke.check(len(rows) == sum(1 for n in sk.class_counts if n),
-                "one captured launch per non-empty class")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sk, stream = sl["run"]["sketch"], sl["run"]["stream"]
+    gm = cmp["runs"]["gmatrix"]["sketch"]
+    batch = EdgeBatch.from_numpy(*stream.batch_numpy(0), device="cuda")
+
+    def labelled(row, label):
+        row["label"] = label
+        return row
+
+    # matrix_ingest: the kMatrix classes of batch 0, gMatrix's P = 1 table
+    calls = _capture_calls(torch, ops, "matrix_ingest",
+                           lambda: kma.ingest(kma.empty_like(sk), batch))
+    smoke.check(len(calls) == sum(1 for n in sk.class_counts if n),
+                "one captured launch per non-empty class")
+    kmat = [labelled(_bench_ingest(smoke, *call, f"kmatrix class {i}"),
+                     f"kmatrix class {i}") for i, call in enumerate(calls)]
+    calls = _capture_calls(torch, ms, "matrix_ingest",
+                           lambda: ms.ingest(ms.empty_like(gm), batch))
+    smoke.check(len(calls) == 1 and tuple(calls[0][0].shape) == (7, 1, 136, 136),
+                "gmatrix ingest: one launch on pool [7, 1, 136, 136]")
+    p1 = labelled(_bench_ingest(smoke, *calls[0], "gmatrix P=1"), "gmatrix P=1")
     d, p, w, c = 7, 64, 128, 8192
     wt = torch.zeros((p, c), dtype=torch.int32, device="cuda")
     wt[:, : c // p] = 1  # one batch of 8192 edges over 64 partitions
-    _bench_ingest(
+    wide = labelled(_bench_ingest(
         smoke, torch.zeros((d, p, w, w), dtype=torch.int32, device="cuda"),
-        torch.randint(0, w, (d, p, c), generator=gen, device="cuda",
-                      dtype=torch.int32),
-        torch.randint(0, w, (d, p, c), generator=gen, device="cuda",
-                      dtype=torch.int32), wt, "wide")
+        _random_ints(torch, gen, w, (d, p, c)),
+        _random_ints(torch, gen, w, (d, p, c)), wt, "wide"), "wide")
 
-    # reach_step: every squaring of the main path's closure, then a wide one
-    adj = (q.closure_layers(sk) > 0).float()
-    reach = torch.clamp(adj + torch.eye(sk.conn_w, device="cuda"), max=1.0)
-    main = _bench_reach(smoke, reach, "main path step 1")
-    for step in range(2, q._closure_steps(sk.conn_w, None) + 1):
-        reach = reach_step_plain(reach)
-        _bench_reach(smoke, reach, f"main path step {step}")
-    wide = (torch.rand((7, 1024, 1024), generator=gen, device="cuda")
-            < 0.002).float()
-    _bench_reach(smoke, torch.clamp(wide + torch.eye(1024, device="cuda"),
-                                    max=1.0), "wide")
+    # matrix_lookup: gMatrix's evaluation queries, then a wide shape
+    qs, qd, _ = sample_stream(stream, 10_000, seed=99)
+    calls = _capture_calls(torch, ms, "matrix_lookup", lambda: ms.edge_freq(
+        gm, torch.as_tensor(qs, device="cuda"), torch.as_tensor(qd, device="cuda")))
+    smoke.check(len(calls) == 1 and tuple(calls[0][1].shape) == (7, 1, 10_000),
+                "gmatrix edge_freq: one launch, hi [7, 1, 10000]")
+    look = [labelled(_bench_lookup(smoke, *calls[0], "gmatrix queries"),
+                     "gmatrix queries")]
+    pool = _random_ints(torch, gen, 1 << 20, (d, p, w, w))
+    look.append(labelled(_bench_lookup(
+        smoke, pool, _random_ints(torch, gen, w, (d, p, c)),
+        _random_ints(torch, gen, w, (d, p, c)), "wide"), "wide"))
+
+    # reach_step: every squaring of the kMatrix closure, the gMatrix
+    # table's first, then a wide one
+    reach_rows = []
+    for label, layers in (("kmatrix conn", q.closure_layers(sk)),
+                          ("gmatrix table", q.closure_layers(gm))):
+        n = layers.shape[-1]
+        reach = torch.clamp((layers > 0).float()
+                            + torch.eye(n, device="cuda"), max=1.0)
+        steps = q._closure_steps(n, None) if label == "kmatrix conn" else 1
+        for step in range(1, steps + 1):
+            reach_rows.append(labelled(_bench_reach(
+                smoke, reach, f"{label} step {step}"), f"{label} step {step}"))
+            reach = reach_step_plain(reach)
+    wide_r = (torch.rand((7, 1024, 1024), generator=gen, device="cuda")
+              < 0.002).float()
+    reach_rows.append(labelled(_bench_reach(
+        smoke, torch.clamp(wide_r + torch.eye(1024, device="cuda"), max=1.0),
+        "wide"), "wide"))
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
             "plain_device_ms", "library_device_ms")
-    total = {k: (None if any(r[k] is None for r in rows)
-                 else sum(r[k] for r in rows)) for k in keys}
-    dev_keys = ("device_ms", "plain_device_ms", "library_device_ms")
+    # one batch of the kMatrix path: its launches summed over the classes
+    batch_sum = {k: (None if any(r[k] is None for r in kmat)
+                     else sum(r[k] for r in kmat)) for k in keys}
+    batch_sum["bound_by"] = "bytes"
+    by_path = {"kmatrix": sl["launches"],
+               **{k: v for k, v in cmp["launches"].items()}}
     return [
-        {"name": "matrix_ingest", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/matrix_ingest.cu",
-         "replaces": "src/repro/kernels/matrix_ingest.py:56",
-         "launches": sl["launches"]["matrix_ingest"],
-         "max_abs_err": max(r["max_abs_err"] for r in rows),
-         "exact": all(r["max_abs_err"] == 0 for r in rows),
-         # one batch of the main path: its launches summed over the classes
-         "ms": total["ms"], "kernel_ms": total["ms"],
-         "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-         "bound_by": "bytes", "library_ms": total["library_ms"],
-         **{k: total[k] for k in dev_keys}},
-        {"name": "reach_step", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/reach_closure.cu",
-         "replaces": "src/repro/kernels/reach_closure.py:39",
-         "launches": reach_launches, "max_abs_err": main["max_abs_err"],
-         "exact": main["max_abs_err"] == 0,
-         "ms": main["ms"], "kernel_ms": main["ms"],
-         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-         **{k: main[k] for k in dev_keys}},
+        _summary("matrix_ingest", "src/repro_torch/kernels/csrc/matrix_ingest.cu",
+                 "src/repro/kernels/matrix_ingest.py:56",
+                 {k: v["matrix_ingest"] for k, v in by_path.items()},
+                 batch_sum, kmat + [p1, wide]),
+        _summary("matrix_lookup", "src/repro_torch/kernels/csrc/matrix_lookup.cu",
+                 "src/repro/kernels/matrix_lookup.py:43",
+                 {k: v["matrix_lookup"] for k, v in by_path.items()},
+                 look[0], look),
+        _summary("reach_step", "src/repro_torch/kernels/csrc/reach_closure.cu",
+                 "src/repro/kernels/reach_closure.py:39",
+                 {f"{k} reachability": v for k, v in reach_launches.items()},
+                 reach_rows[0], reach_rows),
     ]
 
 
@@ -481,10 +718,14 @@ def main() -> int:
     t0 = time.perf_counter()
     card = smoke.phase("A. build kernels", phase_build, smoke)
     sl = smoke.phase("C. slice", phase_slice, smoke) if card else None
-    reach = smoke.phase("D. reachability", phase_reach, smoke, sl) if sl else None
+    cmp = (smoke.phase("F. the paper's comparison", phase_compare, smoke, sl)
+           if sl else None)
+    reach = (smoke.phase("D. reachability", phase_reach, smoke, sl, cmp)
+             if cmp else None)
     if reach is not None:
         smoke.phase("E. where the ingest time goes", phase_profile, smoke, sl)
-    kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl, reach)
+    kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
+                           cmp, reach)
                if reach is not None else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:

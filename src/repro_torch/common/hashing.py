@@ -104,6 +104,15 @@ def fastrange(h: torch.Tensor, w) -> torch.Tensor:
     return ((h * w) >> 32).to(torch.int32)
 
 
+def hash_pair_mix(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Combine two uint32 streams into one key (for edge-keyed hashing);
+    int64 tensor holding uint32 values."""
+    x = _as_u32(x)
+    y = _as_u32(y)
+    h = (_mul32(x, 0x85EBCA6B) + _mul32(y ^ (y >> 13), 0xC2B2AE35)) & _MASK32
+    return h ^ (h >> 16)
+
+
 def np_hash_into(a: np.ndarray, b: np.ndarray, x: np.ndarray, w: int) -> np.ndarray:
     """NumPy oracle mirroring ``HashFamily.hash_into``.
     Shapes: a, b -> [d], x -> [*S]; returns int32[d, *S]."""

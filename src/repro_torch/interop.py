@@ -23,11 +23,15 @@ import torch
 
 from repro_torch.common.hashing import HashFamily
 from repro_torch.common.struct import is_static
+from repro_torch.core.countmin import CountMin
+from repro_torch.core.gsketch import GSketch
 from repro_torch.core.kmatrix import KMatrix
 from repro_torch.core.kmatrix_accel import KMatrixAccel
+from repro_torch.core.matrix_sketch import MatrixSketch
 from repro_torch.core.routing import RouteTable
 
-SKETCH_TYPES = {"KMatrix": KMatrix, "KMatrixAccel": KMatrixAccel}
+SKETCH_TYPES = {cls.__name__: cls for cls in
+                (CountMin, GSketch, MatrixSketch, KMatrix, KMatrixAccel)}
 _NESTED = {"hashes": HashFamily, "route": RouteTable}
 
 
@@ -56,7 +60,7 @@ def _walk(obj, prefix: str, leaves: dict, static: dict) -> None:
 
 
 def export_state(sk) -> tuple[dict[str, np.ndarray], dict]:
-    """(leaves, static) of a kMatrix sketch of either package."""
+    """(leaves, static) of a sketch of either package."""
     leaves: dict[str, np.ndarray] = {}
     static: dict = {"__type__": type(sk).__name__}
     _walk(sk, "", leaves, static)
@@ -95,7 +99,7 @@ def _put(leaves: dict, key: str, used: set, device, int64: bool = False):
 
 
 def import_state(leaves: dict, static: dict, *, device="cuda"):
-    """The port's ``KMatrixAccel`` or ``KMatrix`` holding ``leaves``.
+    """The port's sketch of type ``static["__type__"]`` holding ``leaves``.
 
     Raises on a missing or unexpected leaf.  The tensors are fresh copies.
     """

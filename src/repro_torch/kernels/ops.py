@@ -1,5 +1,11 @@
 """Bindings of the port's kernels to sketch state.
 
+* ``accel_matrix_ingest`` / ``accel_matrix_edge_freq``: the global
+  (d, w, w) matrix sketches (TCM / gMatrix) as P = 1 instances of
+  ``matrix_ingest`` and ``matrix_lookup``.  They are the sketch's own
+  ``matrix_sketch.ingest`` / ``edge_freq``, named as the JAX package names
+  them; the port takes any batch or query count, so there is no padding to
+  a block.
 * ``kmatrix_accel_ingest``: the width-class kMatrix ingest.  Edges are
   bucketed into per-class ``(P_c, capacity)`` rectangles and each non-empty
   class is one ``matrix_ingest`` launch; a sketch must count EVERY edge, so
@@ -16,9 +22,14 @@ import torch
 
 from repro_torch.common.hashing import fastrange
 from repro_torch.core.kmatrix_accel import KMatrixAccel, dispatch_capacity
+from repro_torch.core.matrix_sketch import edge_freq as accel_matrix_edge_freq
+from repro_torch.core.matrix_sketch import ingest as accel_matrix_ingest
 from repro_torch.core.types import EdgeBatch
 from repro_torch.kernels.matrix_ingest import matrix_ingest
 from repro_torch.kernels.reach_closure import reach_step
+
+__all__ = ["accel_matrix_edge_freq", "accel_matrix_ingest",
+           "accel_reach_closure", "kmatrix_accel_ingest"]
 
 
 def accel_reach_closure(table: torch.Tensor, *, n_steps: int | None = None,

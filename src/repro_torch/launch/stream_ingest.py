@@ -2,10 +2,16 @@
 
 stream -> reservoir sample -> VertexStats -> partition plan -> sketch ->
 batched ingest -> edge-frequency queries -> ARE, printed as one JSON line
-(the same line as the JAX package's driver prints).
+(the same line as the JAX package's driver prints), for every sketch kind
+of the paper's comparison, with periodic checkpoints and resume:
 
   python -m repro_torch.launch.stream_ingest --dataset cit-HepPh \
-      --budget-kb 512 --depth 7 [--scale 0.25] [--device cuda]
+      --budget-kb 512 --depth 7 --sketch countmin|gsketch|tcm|gmatrix|kmatrix \
+      [--ckpt-dir DIR --steps-per-ckpt 16 [--resume]] [--scale 0.25] \
+      [--device cuda]
+
+Checkpoints use the JAX package's layout (``repro_torch.checkpoint.store``),
+so either driver resumes from the other's.
 
 The run is on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; without a card and without ``--device cpu`` it
@@ -20,6 +26,7 @@ import time
 
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core import EdgeBatch, vertex_stats_from_sample
 from repro_torch.core.metrics import (
     average_relative_error,
@@ -49,6 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["", "width_class", "flat"],
                     help="kmatrix layout (default: width_class, whose "
                          "ingest runs the matrix_ingest kernel)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="write a checkpoint here every --steps-per-ckpt "
+                         "batches")
+    ap.add_argument("--steps-per-ckpt", type=int, default=16)
+    ap.add_argument("--resume", action="store_true",
+                    help="with --ckpt-dir: continue from its latest "
+                         "checkpoint's stream offset")
     ap.add_argument("--eval-queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
@@ -68,8 +82,9 @@ def require_device(device: str) -> torch.device:
 
 def inline_main(args) -> dict:
     """Run the pipeline, print its lines, and return the run's results:
-    ``sketch``, ``module``, ``stream``, ``ARE`` (unrounded), ``n_edges``,
-    ``batches`` and ``ingest_seconds``."""
+    ``sketch``, ``module``, ``stream``, ``ARE`` (unrounded), ``n_edges``
+    and ``batches`` ingested by this run (from the resumed offset on), and
+    ``ingest_seconds``."""
     device = require_device(args.device)
     stream = make_stream(args.dataset, batch_size=args.batch_size,
                          seed=args.seed, scale=args.scale)
@@ -87,12 +102,24 @@ def inline_main(args) -> dict:
           f"counters={sk.num_counters} on {device} "
           f"({time.perf_counter()-t0:.2f}s init incl. sampling)")
 
+    offset = 0
+    if args.resume and args.ckpt_dir:
+        try:
+            sk, meta = store.restore(args.ckpt_dir, sk)
+            offset = meta["extra"]["stream_offset"]
+            print(f"resumed from batch {offset}")
+        except FileNotFoundError:
+            print("no checkpoint found; starting fresh")
+
     t0 = time.perf_counter()
     n_edges = 0
-    for i in range(stream.num_batches):
+    for i in range(offset, stream.num_batches):
         src, dst, w = stream.batch_numpy(i)
         n_edges += int((w > 0).sum())  # host count: no device sync per batch
         sk = mod.ingest(sk, EdgeBatch.from_numpy(src, dst, w, device=device))
+        if args.ckpt_dir and (i + 1) % args.steps_per_ckpt == 0:
+            store.save(args.ckpt_dir, i + 1, sk,
+                       extra={"stream_offset": i + 1, "seed": args.seed})
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -111,7 +138,7 @@ def inline_main(args) -> dict:
     print(json.dumps({"sketch": args.sketch, "dataset": args.dataset,
                       "budget_kb": args.budget_kb, "ARE": round(are, 4)}))
     return {"sketch": sk, "module": mod, "stream": stream, "ARE": are,
-            "n_edges": n_edges, "batches": stream.num_batches,
+            "n_edges": n_edges, "batches": stream.num_batches - offset,
             "ingest_seconds": dt}
 
 

@@ -12,6 +12,7 @@ a device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -86,6 +87,13 @@ class SyntheticStream:
 
     def batch(self, i: int, *, device="cuda") -> EdgeBatch:
         return EdgeBatch.from_numpy(*self.batch_numpy(i), device=device)
+
+    def iter_from(self, offset: int, *,
+                  device="cuda") -> Iterator[tuple[int, EdgeBatch]]:
+        """Resume iteration from a checkpointed batch offset: yields
+        ``(i, batch i)`` on ``device`` for every i >= offset."""
+        for i in range(offset, self.num_batches):
+            yield i, self.batch(i, device=device)
 
     def all_edges_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Materialize the full stream host-side (evaluation oracles only)."""

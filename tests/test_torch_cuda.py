@@ -11,6 +11,8 @@ from repro_torch import interop
 from repro_torch.kernels import (
     matrix_ingest,
     matrix_ingest_plain,
+    matrix_lookup,
+    matrix_lookup_plain,
     reach_step,
     reach_step_plain,
 )
@@ -59,6 +61,27 @@ def test_reach_step_kernel_equals_plain(card, w):
     assert reach_step.launches == before + 3
 
 
+@pytest.mark.parametrize("d,p,w,c", [(1, 1, 8, 32), (7, 1, 136, 10_000),
+                                     (3, 5, 128, 1000), (7, 64, 128, 8192),
+                                     (2, 3, 17, 1)])
+def test_matrix_lookup_kernel_equals_plain(card, d, p, w, c):
+    rng = np.random.default_rng(d * w + c)
+    pool = torch.as_tensor(
+        rng.integers(-2**31, 2**31 - 1, (d, p, w, w)).astype(np.int32),
+        device=card)
+    hi = torch.as_tensor(rng.integers(0, w, (d, p, c)).astype(np.int32),
+                         device=card)
+    hj = torch.as_tensor(rng.integers(0, w, (d, p, c)).astype(np.int32),
+                         device=card)
+    before = matrix_lookup.launches
+    out = matrix_lookup(pool, hi, hj)
+    assert matrix_lookup.launches == before + 1
+    expect = matrix_lookup_plain(pool, hi, hj)
+    torch.cuda.synchronize()
+    assert out.shape == (p, c) and out.dtype == torch.int32
+    assert torch.equal(out, expect)
+
+
 def test_wrappers_check_inputs_on_card(card):
     pool = torch.zeros((1, 1, 8, 8), dtype=torch.int32, device=card)
     hi = torch.zeros((1, 1, 16), dtype=torch.int32, device=card)
@@ -67,13 +90,28 @@ def test_wrappers_check_inputs_on_card(card):
         matrix_ingest(pool, hi.cpu(), hi, wt)
     with pytest.raises(TypeError):
         reach_step(torch.zeros((1, 4, 4), dtype=torch.float64, device=card))
+    before = matrix_lookup.launches
+    with pytest.raises(ValueError, match="pool on"):
+        matrix_lookup(pool, hi.cpu(), hi)
+    with pytest.raises(TypeError):
+        matrix_lookup(pool, hi.long(), hi)
+    with pytest.raises(ValueError, match="contiguous"):
+        matrix_lookup(pool, hi[:, :, ::2], hi[:, :, ::2])
+    with pytest.raises(ValueError, match="hi/hj must be"):
+        matrix_lookup(pool, hi, hi[:, :, :8])
+    assert matrix_lookup.launches == before
 
 
-def test_stream_ingest_on_card_equals_cpu(card):
+@pytest.mark.parametrize("sketch", ["kmatrix", "gmatrix"])
+def test_stream_ingest_on_card_equals_cpu(card, sketch):
     flags = ["--scale", "0.03", "--budget-kb", "64", "--depth", "3",
-             "--eval-queries", "500"]
+             "--eval-queries", "500", "--sketch", sketch]
     parser = stream_ingest.build_parser()
+    before = (matrix_ingest.launches, matrix_lookup.launches)
     gpu = stream_ingest.inline_main(parser.parse_args([*flags, "--device", "cuda"]))
+    if sketch == "gmatrix":  # one ingest launch per batch, one lookup
+        assert (matrix_ingest.launches - before[0],
+                matrix_lookup.launches - before[1]) == (gpu["batches"], 1)
     cpu = stream_ingest.inline_main(parser.parse_args([*flags, "--device", "cpu"]))
     gl, gs = interop.export_state(gpu["sketch"])
     cl, cs = interop.export_state(cpu["sketch"])

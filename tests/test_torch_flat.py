@@ -61,6 +61,10 @@ def test_import_rejects_malformed_state():
                           depth=2)
     leaves, static = interop.export_state(ref)
     with pytest.raises(ValueError, match="unknown sketch type"):
+        interop.import_state(leaves, {**static, "__type__": "BloomFilter"},
+                             device="cpu")
+    # a known type whose leaves are not these
+    with pytest.raises(KeyError, match="table"):
         interop.import_state(leaves, {**static, "__type__": "CountMin"},
                              device="cpu")
     with pytest.raises(KeyError, match="conn"):

@@ -11,14 +11,24 @@ from pathlib import Path
 import pytest
 import torch
 
+import test_torch_baselines
+import test_torch_checkpoint
 from repro_torch import interop
 from repro_torch.common.hashing import HashFamily
-from repro_torch.core import EdgeBatch, KMatrix, KMatrixAccel
+from repro_torch.core import (
+    CountMin,
+    EdgeBatch,
+    GSketch,
+    KMatrix,
+    KMatrixAccel,
+    MatrixSketch,
+)
 from repro_torch.core import kmatrix_accel as tkma
+from repro_torch.core import matrix_sketch as tms
 from repro_torch.core import queries as tq
 from repro_torch.core import vertex_stats_from_sample
 from repro_torch.core.routing import route_table_from_plan
-from repro_torch.kernels import build, matrix_ingest, reach_step
+from repro_torch.kernels import build, matrix_ingest, matrix_lookup, reach_step
 from repro_torch.launch import stream_ingest
 from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
@@ -49,7 +59,9 @@ def test_port_imports_neither_jax_nor_reference(path):
 @pytest.mark.parametrize("fn", [
     KMatrix.create, KMatrixAccel.create, HashFamily.create,
     EdgeBatch.from_numpy, build_sketch, route_table_from_plan,
-    interop.import_state, SyntheticStream.batch,
+    interop.import_state, SyntheticStream.batch, MatrixSketch.create,
+    CountMin.create, GSketch.create, SyntheticStream.iter_from,
+    tq.heavy_nodes,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -71,7 +83,7 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_card():
 
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
-    matrix_ingest.launches = reach_step.launches = 0
+    matrix_ingest.launches = matrix_lookup.launches = reach_step.launches = 0
     stream = make_stream("cit-HepPh", batch_size=1024, scale=0.01)
     s, d, w = stream.batch_numpy(0)
     sk = KMatrixAccel.create(bytes_budget=1 << 16,
@@ -81,7 +93,14 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     closure = tq.build_closure(tq.closure_layers(sk))
     assert closure.shape == sk.conn.shape
     assert int(sum(int(p.sum()) for p in sk.pools)) == 3 * int(w.sum())
-    assert matrix_ingest.launches == 0 and reach_step.launches == 0
+    gm = MatrixSketch.create(bytes_budget=1 << 16, depth=3, device="cpu")
+    tms.ingest(gm, stream.batch(0, device="cpu"))
+    assert int(gm.table.sum()) == 3 * int(w.sum())
+    est = tms.edge_freq(gm, torch.as_tensor(s), torch.as_tensor(d))
+    assert bool((est >= 1).all())
+    assert tq.reachability(gm, torch.as_tensor(s), torch.as_tensor(d)).all()
+    assert matrix_ingest.launches == matrix_lookup.launches == 0
+    assert reach_step.launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -92,10 +111,39 @@ def test_wrappers_refuse_other_devices():
         matrix_ingest(pool, hi, hi, wt)
     with pytest.raises(ValueError, match="cuda or cpu"):
         reach_step(torch.zeros((1, 4, 4), device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        matrix_lookup(pool, hi, hi)
     assert matrix_ingest.launches == 0 and reach_step.launches == 0
+    assert matrix_lookup.launches == 0
+
+
+def _flag(flags, name):
+    return int(flags[flags.index(name) + 1])
+
+
+@pytest.mark.parametrize("budget,depth", [
+    (test_torch_baselines.BUDGET, test_torch_baselines.DEPTH),
+    (_flag(test_torch_baselines.FLAGS, "--budget-kb") * 1024,
+     _flag(test_torch_baselines.FLAGS, "--depth")),
+    (_flag(test_torch_checkpoint.FLAGS, "--budget-kb") * 1024,
+     _flag(test_torch_checkpoint.FLAGS, "--depth")),
+    (40 * 1024, 3),  # test_torch_checkpoint._sketches
+])
+def test_parity_widths_stay_below_2_16(budget, depth):
+    """The JAX package's fastrange computes (h * w) >> 32 in 16-bit limbs
+    that can overflow for wide ranges (ROADMAP C); the parity tests hold
+    every CountMin / gSketch width below 2^16, where it is exact."""
+    cm = CountMin.create(bytes_budget=budget, depth=depth, device="cpu")
+    assert cm.w < 2**16
+    stream = make_stream("cit-HepPh", batch_size=4096, scale=0.03)
+    gs = GSketch.create(bytes_budget=budget, depth=depth,
+                        stats=vertex_stats_from_sample(*stream.batch_numpy(0)),
+                        device="cpu")
+    assert int(gs.route.widths.max()) <= cm.w < 2**16
 
 
 def test_kernel_libraries_are_named_by_content_and_need_nvcc():
+    assert build.KERNELS == ("matrix_ingest", "matrix_lookup", "reach_closure")
     paths = {name: build.library_path(name) for name in build.KERNELS}
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
