@@ -7,6 +7,22 @@ Phases (any failure exits nonzero without the final ``ok`` line):
 
   A. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
      (all at once) and print the card's name and power limit.
+  G. Recsys serving: the Factorization Machine at full width (39 fields,
+     k = 10, 10,000,384 table rows; random weights from a torch seed) on
+     ``cuda``, through ``build_fm_cell`` for the three serve-kind cells:
+     ``serve_p99`` (512 x 39), ``serve_bulk`` (262,144 x 39) and
+     ``retrieval_cand`` (1 query, 1,000,000 candidates), ids uniform in
+     [0, 2^30) from a numpy seed.  Launch counts are zeroed just before and
+     read just after each cell: 3 ``embedding_bag`` launches per forward,
+     6 per retrieval, no other kernel.  The same cell runs on the CPU
+     through the plain versions on the same weights: every bag's output
+     must be bit-equal, and logits and scores equal within rtol 1e-5,
+     atol 1e-6 (the k-sum, the elementwise tail and the retrieval GEMV run
+     in another order on the card; TF32 is off).  Each cell's latency
+     (CUDA events around one synchronised call, median of 30 after
+     warm-up), rows/s, and the device's busy time per call with its
+     largest operations (torch.profiler).  It runs after A and needs none
+     of the sketch phases.
   C. The main path: the paper pipeline on the full cit-HepPh stream (scale
      1.0: 421,578 edges in 52 batches of 8192), 512 KB budget, depth 7,
      banded partitioner, 10,000 evaluation queries, through the port's
@@ -37,8 +53,9 @@ Phases (any failure exits nonzero without the final ``ok`` line):
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (kMatrix classes and the P = 1 gMatrix table for
      ``matrix_ingest``, the gMatrix evaluation queries for ``matrix_lookup``,
-     the kMatrix and gMatrix closures for ``reach_step``) plus one wide
-     shape each: bit-equal results, and times
+     the kMatrix and gMatrix closures for ``reach_step``, every bag of
+     phase G for ``embedding_bag``) plus one wide shape each for the
+     sketch kernels: bit-equal results, and times
      of the kernel, the plain version and one PyTorch library call computing
      the same function, beside the least time the card could take
      (``bound_ms``).  ``ms`` keys are CUDA-event times of back-to-back calls
@@ -55,6 +72,7 @@ from __future__ import annotations
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -72,6 +90,9 @@ SLICE_FLAGS = ["--dataset", "cit-HepPh", "--scale", "1.0", "--budget-kb", "512",
                "--depth", "7", "--batch-size", "8192", "--partitioner", "banded",
                "--eval-queries", "10000", "--sketch-backend", "width_class"]
 REACH_PAIRS = 10_000
+FM_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
+FM_BAGS = {"serve": 3, "retrieval": 6}  # embedding_bag launches per step
+FM_RTOL, FM_ATOL = 1e-5, 1e-6
 # phase F's runs: the four baselines, and kMatrix in the flat layout, whose
 # partitions keep their planned widths (the width-class layout of phase C
 # rounds them down to powers of two and so holds fewer counters)
@@ -104,21 +125,51 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20):
-    """Device time per call of ``fn()`` from ``torch.profiler``: the summed
-    duration of the kernels it launched, over ``iters`` calls.  Unlike
-    ``time_ms`` it excludes the host's launch overhead.  None when the
-    profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def _profiled(torch, fn, iters: int, synced: bool = False):
+    """Device rows of ``key_averages()`` over ``iters`` calls of ``fn()``
+    (each followed by a synchronise if ``synced``).  The profiler traces
+    a first cycle of ``iters`` calls and throws it away, since a session
+    that records from its start was seen to lose its first calls."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_self_device_us(e) for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    cycles = []  # the profiler clears its events when a cycle ends
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: cycles.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(iters):
+                fn()
+                if synced:
+                    torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
+    return cycles[-1] if cycles else []
+
+
+def _per_call_us(event, iters: int) -> float:
+    """A kernel row's device time per call: its mean duration times the
+    whole number of launches per call its count shows."""
+    us = _self_device_us(event)
+    if us <= 0 or event.count == 0:
+        return 0.0
+    return us / event.count * max(1, round(event.count / iters))
+
+
+def device_ms(torch, fn, iters: int = 20, attempts: int = 3):
+    """Device time per call of ``fn()`` from ``torch.profiler``: the summed
+    duration of the kernels it launched, per call.  Unlike ``time_ms`` it
+    excludes the host's launch overhead.  A session that records no
+    device time at all (seen now and then) is run again; None when every
+    attempt records none."""
+    for _ in range(attempts):
+        total_us = sum(_per_call_us(e, iters)
+                       for e in _profiled(torch, fn, iters))
+        if total_us > 0:
+            return total_us / 1e3
+    return None
 
 
 def _self_device_us(event) -> float:
@@ -153,7 +204,8 @@ class Smoke:
             return None
 
 
-KERNEL_NAMES = ("matrix_ingest", "matrix_lookup", "reach_step")
+KERNEL_NAMES = ("matrix_ingest", "matrix_lookup", "reach_step",
+                "embedding_bag")
 
 
 def _wrappers() -> dict:
@@ -233,6 +285,7 @@ def phase_slice(smoke):
     smoke.check(launches["reach_step"] == 0, "no reach_step launch in ingest")
     smoke.check(launches["matrix_lookup"] == 0,
                 "no matrix_lookup launch (width-class queries are gathers)")
+    smoke.check(launches["embedding_bag"] == 0, "no embedding_bag launch")
     rate = run["n_edges"] / run["ingest_seconds"] / 1e6
     print(f"  ingest: {run['n_edges']} edges in {run['ingest_seconds']:.4f}s "
           f"= {rate:.3f} M edges/s end to end (cuda); ARE={run['ARE']!r}")
@@ -300,7 +353,8 @@ def phase_compare(smoke, sl):
                     f"{kind}: ARE cuda == cpu ({run['ARE']!r})")
         matrix = kind in ("tcm", "gmatrix")
         expect = {"matrix_ingest": run["batches"] if matrix else 0,
-                  "matrix_lookup": 1 if matrix else 0, "reach_step": 0}
+                  "matrix_lookup": 1 if matrix else 0, "reach_step": 0,
+                  "embedding_bag": 0}
         smoke.check(launches[kind] == expect,
                     f"{kind}: launches {launches[kind]} == {expect}")
         runs[kind], cpus[kind] = run, cpu
@@ -457,6 +511,133 @@ def phase_profile(smoke, sl):
     return per_batch
 
 
+def _capture_bags(torch, fn):
+    """``fn()``'s result and, for every ``embedding_bag`` call the FM made
+    in it, ``(table, idx, weights, out)``.  The tensors are the call's
+    own (nothing on the path writes to them afterwards), not copies."""
+    from repro_torch.models.recsys import fm as fm_mod
+
+    calls = []
+    real = fm_mod.embedding_bag
+
+    def record(table, idx, weights=None):
+        out = real(table, idx, weights)
+        calls.append((table, idx, weights, out))
+        return out
+
+    fm_mod.embedding_bag = record
+    try:
+        result = fn()
+    finally:
+        fm_mod.embedding_bag = real
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return result, calls
+
+
+def _latencies_ms(torch, fn, n: int = 30, warmup: int = 3) -> list:
+    """Latency of ``n`` single calls of ``fn()``: CUDA events around each
+    call, the device idle before it (synchronised), so a call's time
+    includes the host issuing it."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def _device_breakdown(torch, fn, iters: int = 10):
+    """Device time per call of ``fn()`` (each call synchronised, as a
+    served request is) and its largest device operations, from
+    ``torch.profiler``."""
+    events = [e for e in _profiled(torch, fn, iters, synced=True)
+              if _per_call_us(e, iters) > 0]
+    busy = sum(_per_call_us(e, iters) for e in events) / 1e3
+    top = sorted(events, key=lambda e: _per_call_us(e, iters), reverse=True)
+    return busy, [(e.key[:70], _per_call_us(e, iters), e.count / iters)
+                  for e in top[:6]]
+
+
+def phase_fm(smoke, card):
+    """The FM serving path at full width on the card, against the CPU."""
+    torch = smoke.torch
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import RECSYS_SHAPES
+    from repro_torch.models.recsys import fm as fm_mod
+
+    cfg = registry._fm_config()
+    t_phase = t0 = time.perf_counter()
+    params = fm_mod.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    cpu_params = fm_mod.FM(cfg, params.emb.cpu(), params.lin.cpu(),
+                           params.bias.cpu())
+    mb = (params.emb.numel() + params.lin.numel()) * 4 / 1e6
+    print(f"  {cfg}: emb {list(params.emb.shape)}, lin "
+          f"{list(params.lin.shape)} ({mb:.1f} MB f32), made on cuda and "
+          f"copied to the CPU in {time.perf_counter() - t0:.2f}s")
+    smoke.check(cfg.table_rows == 10_000_384 and cfg.n_fields == 39
+                and cfg.embed_dim == 10, "full width: 39 fields, k = 10, "
+                "10,000,384 rows")
+    rng = np.random.default_rng(0)
+    launches, bags, summary = {}, {}, {}
+    for name in FM_CELLS:
+        cell = registry.build_fm_cell(name, params, rng, device="cuda")
+        kind = RECSYS_SHAPES[name].kind
+        reset_launches()
+        out, calls = _capture_bags(torch, cell.run)
+        launches[name] = read_launches()
+        expect = {k: 0 for k in KERNEL_NAMES}
+        expect["embedding_bag"] = FM_BAGS[kind]
+        smoke.check(launches[name] == expect,
+                    f"{name}: launches {launches[name]} == {expect}")
+        what = "scores" if kind == "retrieval" else "logits"
+        smoke.check(tuple(out.shape) == (cell.rows,)
+                    and bool(torch.isfinite(out).all()),
+                    f"{name}: {cell.rows} finite {what}")
+        t1 = time.perf_counter()
+        ref, cpu_calls = _capture_bags(torch, lambda: cell.step_fn(
+            cpu_params, *(x.cpu() for x in cell.inputs)))
+        cpu_s = time.perf_counter() - t1
+        smoke.check(len(calls) == len(cpu_calls) and all(
+            torch.equal(c[3].cpu(), r[3]) for c, r in zip(calls, cpu_calls)),
+            f"{name}: {len(calls)} bag outputs bit-equal to the CPU plain "
+            f"path ({cpu_s:.2f}s on the CPU)")
+        err = float((out.cpu() - ref).abs().max())
+        smoke.check(torch.allclose(out.cpu(), ref, rtol=FM_RTOL, atol=FM_ATOL),
+                    f"{name}: within rtol {FM_RTOL}, atol {FM_ATOL} of the "
+                    f"CPU path (max abs diff {err!r})")
+        lat = sorted(_latencies_ms(torch, cell.run))
+        med = statistics.median(lat)
+        busy, top = _device_breakdown(torch, cell.run)
+        summary[name] = {"rows": cell.rows, "median_ms": med,
+                         "p10_ms": lat[len(lat) // 10],
+                         "p90_ms": lat[len(lat) * 9 // 10],
+                         "max_ms": lat[-1],
+                         "rows_per_s": cell.rows / med * 1e3,
+                         "device_busy_ms": busy, "idle_share": 1 - busy / med,
+                         "cpu_check_s": cpu_s}
+        print(f"  {name}: {json.dumps(summary[name])} ({card})")
+        for key, us, count in top:
+            print(f"    device {us:9.2f} us/call  x{count:4.1f}  {key}")
+        bags[name] = calls
+    fm_launches = {k: sum(v[k] for v in launches.values())
+                   for k in KERNEL_NAMES}
+    print(f"  launches on the FM path: {fm_launches}; phase G "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return {"launches": fm_launches, "bags": bags, "summary": summary}
+
+
 def _capture_calls(torch, module, name, fn):
     """The tensor arguments ``fn()`` hands the kernel wrapper ``name`` of
     ``module``, one tuple per call, captured (cloned) from a real run."""
@@ -577,6 +758,53 @@ def _bench_lookup(smoke, pool, hi, hj, label):
     return row
 
 
+def _bench_bag(smoke, table, idx, weights, label):
+    torch = smoke.torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag, embedding_bag_plain
+
+    b, f = idx.shape
+    d = table.shape[1]
+    out_k = embedding_bag(table, idx, weights)
+    out_p = embedding_bag_plain(table, idx, weights)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max()) if out_k.numel() else 0.0
+    smoke.check(torch.equal(out_k, out_p), f"embedding_bag {label} bit-equal")
+    ms = time_ms(torch, lambda: embedding_bag(table, idx, weights))
+    plain_ms = time_ms(torch, lambda: embedding_bag_plain(table, idx, weights))
+
+    def library():
+        return F.embedding_bag(idx, table, mode="sum",
+                               per_sample_weights=weights)
+
+    library_ms = time_ms(torch, library)
+    dev = {"device_ms": device_ms(torch, lambda: embedding_bag(table, idx, weights)),
+           "plain_device_ms": device_ms(
+               torch, lambda: embedding_bag_plain(table, idx, weights)),
+           "library_device_ms": device_ms(torch, library)}
+    # bytes this call's data needs: idx (and weights) once, out once, and
+    # each distinct row it gathers once; beside them the 32-byte sectors
+    # those rows span, which is what the card moves for them
+    rows = torch.unique(idx).long()
+    first = rows * d * 4 // 32
+    span = (rows * d * 4 + d * 4 - 1) // 32 - first + 1
+    steps = torch.arange(int(span.max()), device="cuda")
+    cover = first[:, None] + steps[None, :]
+    sectors = int(torch.unique(cover[steps[None, :] < span[:, None]]).numel())
+    fixed = idx.numel() * 4 * (1 if weights is None else 2) + b * d * 4
+    nbytes = fixed + rows.numel() * d * 4
+    row = {"shape": f"table{list(table.shape)} idx{list(idx.shape)}"
+                    f"{'' if weights is None else ' weighted'}",
+           "rows_gathered": rows.numel(), "sectors_gathered": sectors,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "sector_bound_ms": (fixed + sectors * 32) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", **dev}
+    print(f"  embedding_bag {label}: {json.dumps(row)}")
+    return row
+
+
 def _random_ints(torch, gen, hi, shape):
     return torch.randint(0, hi, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -600,7 +828,7 @@ def _summary(name, source, replaces, launches, main, rows):
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach_launches):
+def phase_kernels(smoke, sl, cmp, reach_launches, fm):
     torch = smoke.torch
     from repro_torch.core import EdgeBatch
     from repro_torch.core import kmatrix_accel as kma
@@ -671,14 +899,34 @@ def phase_kernels(smoke, sl, cmp, reach_launches):
         smoke, torch.clamp(wide_r + torch.eye(1024, device="cuda"), max=1.0),
         "wide"), "wide"))
 
+    # embedding_bag: every bag of phase G's cells, as the FM called them
+    bag_rows = {}
+    for cell, calls in fm["bags"].items():
+        names = ("emb", "emb_sq", "lin")
+        for i, (table, idx, weights, _) in enumerate(calls):
+            part = ("query " if cell == "retrieval_cand" and i < 3 else
+                    "candidates " if cell == "retrieval_cand" else "")
+            label = f"{cell} {part}{names[i % 3]}"
+            bag_rows[label] = labelled(_bench_bag(smoke, table, idx, weights,
+                                                  label), label)
+
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
             "plain_device_ms", "library_device_ms")
+
+    def summed(rows):
+        """One step's numbers: its launches summed."""
+        out = {k: (None if any(r[k] is None for r in rows)
+                   else sum(r[k] for r in rows)) for k in keys}
+        out["bound_by"] = "bytes"
+        return out
+
     # one batch of the kMatrix path: its launches summed over the classes
-    batch_sum = {k: (None if any(r[k] is None for r in kmat)
-                     else sum(r[k] for r in kmat)) for k in keys}
-    batch_sum["bound_by"] = "bytes"
+    batch_sum = summed(kmat)
+    # one serve_p99 forward: its three bags
+    p99 = summed([r for k, r in bag_rows.items() if k.startswith("serve_p99")])
     by_path = {"kmatrix": sl["launches"],
-               **{k: v for k, v in cmp["launches"].items()}}
+               **{k: v for k, v in cmp["launches"].items()},
+               "fm": fm["launches"]}
     return [
         _summary("matrix_ingest", "src/repro_torch/kernels/csrc/matrix_ingest.cu",
                  "src/repro/kernels/matrix_ingest.py:56",
@@ -690,8 +938,14 @@ def phase_kernels(smoke, sl, cmp, reach_launches):
                  look[0], look),
         _summary("reach_step", "src/repro_torch/kernels/csrc/reach_closure.cu",
                  "src/repro/kernels/reach_closure.py:39",
-                 {f"{k} reachability": v for k, v in reach_launches.items()},
+                 {**{f"{k} reachability": v
+                     for k, v in reach_launches.items()},
+                  "fm": fm["launches"]["reach_step"]},
                  reach_rows[0], reach_rows),
+        _summary("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                 "src/repro/kernels/embedding_bag.py:38",
+                 {k: v["embedding_bag"] for k, v in by_path.items()},
+                 p99, list(bag_rows.values())),
     ]
 
 
@@ -717,6 +971,7 @@ def main() -> int:
     smoke = Smoke(torch)
     t0 = time.perf_counter()
     card = smoke.phase("A. build kernels", phase_build, smoke)
+    fm = smoke.phase("G. recsys serving", phase_fm, smoke, card) if card else None
     sl = smoke.phase("C. slice", phase_slice, smoke) if card else None
     cmp = (smoke.phase("F. the paper's comparison", phase_compare, smoke, sl)
            if sl else None)
@@ -725,8 +980,8 @@ def main() -> int:
     if reach is not None:
         smoke.phase("E. where the ingest time goes", phase_profile, smoke, sl)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
-                           cmp, reach)
-               if reach is not None else None)
+                           cmp, reach, fm)
+               if reach is not None and fm is not None else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

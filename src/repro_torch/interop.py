@@ -13,6 +13,9 @@ A sketch travels as two dicts:
 dataclass fields, telling static fields by the metadata key both packages
 use), so a test can start both sides from one state and compare them leaf
 by leaf.  ``import_state`` builds the port's sketch on a device.
+
+``fm_params_from_jax`` does the same for the FM: the JAX package's params
+dict (``emb``, ``lin``, ``bias``) as numpy arrays becomes the port's ``FM``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.kmatrix import KMatrix
 from repro_torch.core.kmatrix_accel import KMatrixAccel
 from repro_torch.core.matrix_sketch import MatrixSketch
 from repro_torch.core.routing import RouteTable
+from repro_torch.models.recsys.fm import FM, FMConfig
 
 SKETCH_TYPES = {cls.__name__: cls for cls in
                 (CountMin, GSketch, MatrixSketch, KMatrix, KMatrixAccel)}
@@ -113,3 +117,14 @@ def import_state(leaves: dict, static: dict, *, device="cuda"):
     if extra:
         raise ValueError(f"unexpected leaves for {kind}: {extra}")
     return sk
+
+
+def fm_params_from_jax(cfg: FMConfig, np_params: dict, *, device="cuda") -> FM:
+    """The port's ``FM`` holding copies of the JAX package's FM params
+    (``{"emb", "lin", "bias"}`` as numpy arrays) on ``device``."""
+    missing = {"emb", "lin", "bias"} - set(np_params)
+    if missing:
+        raise KeyError(f"FM params missing {sorted(missing)}")
+    return FM(cfg, *(torch.as_tensor(np.array(np_params[k], dtype=np.float32),
+                                     device=device)
+                     for k in ("emb", "lin", "bias")))

@@ -4,15 +4,19 @@
   matrix_lookup  — gather + min over layers, sketch point queries
                    (csrc/matrix_lookup.cu)
   reach_step     — tiled boolean squaring for reachability (csrc/reach_closure.cu)
+  embedding_bag  — fixed-arity row gather + sum, the FM's lookups
+                   (csrc/embedding_bag.cu)
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``).  A CUDA tensor launches the kernel;
 a CPU tensor takes the plain version.  ``build`` compiles the sources with
 ``nvcc`` at first use.
 """
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
 from repro_torch.kernels.matrix_ingest import matrix_ingest, matrix_ingest_plain
 from repro_torch.kernels.matrix_lookup import matrix_lookup, matrix_lookup_plain
 from repro_torch.kernels.reach_closure import reach_step, reach_step_plain
 
-__all__ = ["matrix_ingest", "matrix_ingest_plain", "matrix_lookup",
-           "matrix_lookup_plain", "reach_step", "reach_step_plain"]
+__all__ = ["embedding_bag", "embedding_bag_plain", "matrix_ingest",
+           "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_plain",
+           "reach_step", "reach_step_plain"]

@@ -15,6 +15,8 @@
   bit-identical to it.
 * ``accel_reach_closure``: boolean closure of every layer, one
   ``reach_step`` launch per squaring.
+* ``embedding_bag``: re-exported, as the JAX package's ``ops`` does; the
+  FM (``models/recsys/fm.py``) is its caller.
 """
 from __future__ import annotations
 
@@ -25,11 +27,12 @@ from repro_torch.core.kmatrix_accel import KMatrixAccel, dispatch_capacity
 from repro_torch.core.matrix_sketch import edge_freq as accel_matrix_edge_freq
 from repro_torch.core.matrix_sketch import ingest as accel_matrix_ingest
 from repro_torch.core.types import EdgeBatch
+from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.matrix_ingest import matrix_ingest
 from repro_torch.kernels.reach_closure import reach_step
 
 __all__ = ["accel_matrix_edge_freq", "accel_matrix_ingest",
-           "accel_reach_closure", "kmatrix_accel_ingest"]
+           "accel_reach_closure", "embedding_bag", "kmatrix_accel_ingest"]
 
 
 def accel_reach_closure(table: torch.Tensor, *, n_steps: int | None = None,

@@ -28,8 +28,16 @@ from repro_torch.core import matrix_sketch as tms
 from repro_torch.core import queries as tq
 from repro_torch.core import vertex_stats_from_sample
 from repro_torch.core.routing import route_table_from_plan
-from repro_torch.kernels import build, matrix_ingest, matrix_lookup, reach_step
+from repro_torch.configs.registry import build_fm_cell
+from repro_torch.kernels import (
+    build,
+    embedding_bag,
+    matrix_ingest,
+    matrix_lookup,
+    reach_step,
+)
 from repro_torch.launch import stream_ingest
+from repro_torch.models.recsys import fm as tfm
 from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
 from repro_torch.streams.generators import SyntheticStream
@@ -61,7 +69,7 @@ def test_port_imports_neither_jax_nor_reference(path):
     EdgeBatch.from_numpy, build_sketch, route_table_from_plan,
     interop.import_state, SyntheticStream.batch, MatrixSketch.create,
     CountMin.create, GSketch.create, SyntheticStream.iter_from,
-    tq.heavy_nodes,
+    tq.heavy_nodes, tfm.init_params, build_fm_cell, interop.fm_params_from_jax,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -84,6 +92,7 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_card():
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
     matrix_ingest.launches = matrix_lookup.launches = reach_step.launches = 0
+    embedding_bag.launches = 0
     stream = make_stream("cit-HepPh", batch_size=1024, scale=0.01)
     s, d, w = stream.batch_numpy(0)
     sk = KMatrixAccel.create(bytes_budget=1 << 16,
@@ -101,6 +110,11 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     assert tq.reachability(gm, torch.as_tensor(s), torch.as_tensor(d)).all()
     assert matrix_ingest.launches == matrix_lookup.launches == 0
     assert reach_step.launches == 0
+    cfg = tfm.FMConfig(total_vocab=5_000, n_fields=7)
+    fm = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    ids = torch.randint(0, 1 << 30, (4, 7), dtype=torch.int32)
+    assert tfm.retrieval_scores(cfg, fm, ids[0], ids).shape == (4,)
+    assert embedding_bag.launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -113,8 +127,11 @@ def test_wrappers_refuse_other_devices():
         reach_step(torch.zeros((1, 4, 4), device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         matrix_lookup(pool, hi, hi)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        embedding_bag(torch.zeros((4, 10), device="meta"),
+                      torch.zeros((2, 3), dtype=torch.int32, device="meta"))
     assert matrix_ingest.launches == 0 and reach_step.launches == 0
-    assert matrix_lookup.launches == 0
+    assert matrix_lookup.launches == 0 and embedding_bag.launches == 0
 
 
 def _flag(flags, name):
@@ -143,7 +160,8 @@ def test_parity_widths_stay_below_2_16(budget, depth):
 
 
 def test_kernel_libraries_are_named_by_content_and_need_nvcc():
-    assert build.KERNELS == ("matrix_ingest", "matrix_lookup", "reach_closure")
+    assert build.KERNELS == ("matrix_ingest", "matrix_lookup", "reach_closure",
+                             "embedding_bag")
     paths = {name: build.library_path(name) for name in build.KERNELS}
     for name, path in paths.items():
         assert path.parent == build.BUILD_DIR
