@@ -41,8 +41,10 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      end to end, launches) and the ARE ordering, the width-class kMatrix's
      from phase C; the ordering is printed, not gated.
   D. Reachability: the closure of the kMatrix sketch's connectivity layers
-     and of the gMatrix table through ``reach_step`` (one launch per
-     squaring), 10,000 sampled pairs each, compared with the CPU plain
+     (w = 43) and of the gMatrix table (w = 136), each one ``reach_closure``
+     launch, and of a gMatrix table at 2 MB (w = 273, wider than one
+     block's shared memory holds) through ``reach_step``, one launch per
+     squaring; 10,000 sampled pairs each, compared with the CPU plain
      closure.  Then a checkpoint round trip on the card through the
      driver: the main path with ``--ckpt-dir --steps-per-ckpt 26``, then
      ``--resume`` from the batch-26 checkpoint; both must equal the
@@ -53,9 +55,11 @@ Phases (any failure exits nonzero without the final ``ok`` line):
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (kMatrix classes and the P = 1 gMatrix table for
      ``matrix_ingest``, the gMatrix evaluation queries for ``matrix_lookup``,
-     the kMatrix and gMatrix closures for ``reach_step``, every bag of
-     phase G for ``embedding_bag``) plus one wide shape each for the
-     sketch kernels: bit-equal results, and times
+     the kMatrix and gMatrix closures for ``reach_closure`` and their
+     squarings for ``reach_step``, every bag of phase G for
+     ``embedding_bag``) plus one wide shape each for the sketch kernels
+     (``reach_step`` also at phase D's 2 MB table): bit-equal results, and
+     times
      of the kernel, the plain version and one PyTorch library call computing
      the same function, beside the least time the card could take
      (``bound_ms``).  ``ms`` keys are CUDA-event times of back-to-back calls
@@ -85,11 +89,14 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_FLOPS = 989e12  # bf16 on the tensor cores, which B2 runs
 
 SLICE_FLAGS = ["--dataset", "cit-HepPh", "--scale", "1.0", "--budget-kb", "512",
                "--depth", "7", "--batch-size", "8192", "--partitioner", "banded",
                "--eval-queries", "10000", "--sketch-backend", "width_class"]
 REACH_PAIRS = 10_000
+# phase D's third closure: a gMatrix table too wide for one block (w = 273)
+WIDE_REACH_FLAGS = [*SLICE_FLAGS, "--sketch", "gmatrix", "--budget-kb", "2048"]
 FM_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
 FM_BAGS = {"serve": 3, "retrieval": 6}  # embedding_bag launches per step
 FM_RTOL, FM_ATOL = 1e-5, 1e-6
@@ -205,7 +212,7 @@ class Smoke:
 
 
 KERNEL_NAMES = ("matrix_ingest", "matrix_lookup", "reach_step",
-                "embedding_bag")
+                "reach_closure", "embedding_bag")
 
 
 def _wrappers() -> dict:
@@ -282,7 +289,8 @@ def phase_slice(smoke):
     smoke.check(launches["matrix_ingest"] == run["batches"] * classes,
                 f"matrix_ingest launches == batches x classes "
                 f"({run['batches']} x {classes})")
-    smoke.check(launches["reach_step"] == 0, "no reach_step launch in ingest")
+    smoke.check(launches["reach_step"] == launches["reach_closure"] == 0,
+                "no reach_step or reach_closure launch in ingest")
     smoke.check(launches["matrix_lookup"] == 0,
                 "no matrix_lookup launch (width-class queries are gathers)")
     smoke.check(launches["embedding_bag"] == 0, "no embedding_bag launch")
@@ -354,7 +362,7 @@ def phase_compare(smoke, sl):
         matrix = kind in ("tcm", "gmatrix")
         expect = {"matrix_ingest": run["batches"] if matrix else 0,
                   "matrix_lookup": 1 if matrix else 0, "reach_step": 0,
-                  "embedding_bag": 0}
+                  "reach_closure": 0, "embedding_bag": 0}
         smoke.check(launches[kind] == expect,
                     f"{kind}: launches {launches[kind]} == {expect}")
         runs[kind], cpus[kind] = run, cpu
@@ -376,9 +384,10 @@ def _reach_path(smoke, label, sk, sk_cpu, n, answer):
     """Close ``sk``'s adjacency layers on the card and answer REACH_PAIRS
     pairs of vertex ids below ``n`` through ``answer(sketch, src, dst)``;
     hold closure and answers against the CPU plain version.  Returns the
-    path's reach_step launches."""
+    path's reach_step and reach_closure launches."""
     torch = smoke.torch
     from repro_torch.core import queries as q
+    from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
 
     import numpy as np
 
@@ -388,13 +397,16 @@ def _reach_path(smoke, label, sk, sk_cpu, n, answer):
     reset_launches()
     answers = answer(sk, qs.cuda(), qd.cuda())
     torch.cuda.synchronize()
-    launches = read_launches()["reach_step"]
+    launches = {k: read_launches()[k] for k in ("reach_step", "reach_closure")}
     w = q.closure_layers(sk).shape[-1]
     steps = q._closure_steps(w, None)
-    print(f"  {label}: reach_step launches {launches} (closure steps for "
-          f"w={w}: {steps})")
-    smoke.check(launches == steps, f"{label}: reach_step launches == "
-                                   f"_closure_steps({w}) == {steps}")
+    # one launch for the whole closure where a layer fits one block, else
+    # one reach_step launch per squaring
+    expect = ({"reach_step": 0, "reach_closure": 1} if w <= CLOSURE_MAX_W
+              else {"reach_step": steps, "reach_closure": 0})
+    print(f"  {label}: launches {launches} (w={w}, {steps} squarings, "
+          f"one block holds w <= {CLOSURE_MAX_W})")
+    smoke.check(launches == expect, f"{label}: launches {launches} == {expect}")
     ref = answer(sk_cpu, qs, qd)
     smoke.check(torch.equal(answers.cpu(), ref),
                 f"{label}: {REACH_PAIRS} reachability answers == cpu plain "
@@ -447,8 +459,15 @@ def _checkpoint_round_trip(smoke, sl):
 
 def phase_reach(smoke, sl, cmp):
     from repro_torch.core import queries as q
+    from repro_torch.launch import stream_ingest
 
     n = sl["run"]["stream"].spec.n_nodes
+    parser = stream_ingest.build_parser()
+    wide = {dev: stream_ingest.inline_main(parser.parse_args(
+        [*WIDE_REACH_FLAGS, "--device", dev]))["sketch"]
+        for dev in ("cuda", "cpu")}
+    smoke.check(same_state(wide["cuda"], wide["cpu"]),
+                "gmatrix 2 MB: cuda table == cpu plain table")
     launches = {
         "kmatrix": _reach_path(
             smoke, "kmatrix conn", sl["run"]["sketch"], sl["cpu"]["sketch"],
@@ -456,9 +475,12 @@ def phase_reach(smoke, sl, cmp):
         "gmatrix": _reach_path(
             smoke, "gmatrix table", cmp["runs"]["gmatrix"]["sketch"],
             cmp["cpu"]["gmatrix"]["sketch"], n, q.reachability),
+        "gmatrix 2MB": _reach_path(
+            smoke, "gmatrix 2 MB table", wide["cuda"], wide["cpu"], n,
+            q.reachability),
     }
     _checkpoint_round_trip(smoke, sl)
-    return launches
+    return {"launches": launches, "wide": wide["cuda"]}
 
 
 def phase_profile(smoke, sl):
@@ -699,6 +721,17 @@ def _bench_ingest(smoke, pool, hi, hj, wt, label):
     return row
 
 
+def _reach_bound(nbytes: float, flops: float) -> dict:
+    """B2's bound: bytes over the memory rate against operations over the
+    rate of the arithmetic it runs (bf16 on the tensor cores), with the
+    float32 figure beside it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_fp32_ms": max(bytes_ms, flops / FP32_FLOPS * 1e3)}
+
+
 def _bench_reach(smoke, reach, label):
     torch = smoke.torch
     from repro_torch.kernels import reach_step, reach_step_plain
@@ -708,20 +741,81 @@ def _bench_reach(smoke, reach, label):
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     smoke.check(torch.equal(out_k, out_p), f"reach_step {label} bit-equal")
+    # bf16 holds 0/1 exactly and the clamp makes any rounding of the sum
+    # irrelevant: the honest yardstick for a tensor-core kernel
+    half = reach.bfloat16()
+    smoke.check(torch.equal(torch.clamp(torch.bmm(half, half), max=1).float(),
+                            out_p), f"reach_step {label}: bf16 bmm exact too")
     ms = time_ms(torch, lambda: reach_step(reach))
     plain_ms = time_ms(torch, lambda: reach_step_plain(reach))
     library_ms = time_ms(torch, lambda: torch.bmm(reach, reach))
     dev = {"device_ms": device_ms(torch, lambda: reach_step(reach)),
            "plain_device_ms": device_ms(torch, lambda: reach_step_plain(reach)),
-           "library_device_ms": device_ms(torch, lambda: torch.bmm(reach, reach))}
-    bytes_ms = 2 * reach.numel() * 4 / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * d * w ** 3 / FP32_FLOPS * 1e3
+           "library_device_ms": device_ms(torch, lambda: torch.bmm(reach, reach)),
+           "library_bf16_ms": time_ms(torch, lambda: torch.bmm(half, half)),
+           "library_bf16_device_ms": device_ms(
+               torch, lambda: torch.bmm(half, half))}
     row = {"shape": f"reach{list(reach.shape)}", "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           **dev}
+           **_reach_bound(2 * reach.numel() * 4, 2 * d * w ** 3), **dev}
     print(f"  reach_step {label}: {json.dumps(row)}")
+    return row
+
+
+def _squarings_taken(torch, table, n_steps: int) -> list:
+    """Per layer, the squarings the early-stopping closure runs: up to and
+    including the first that leaves the layer unchanged, at most n_steps."""
+    from repro_torch.kernels.reach_closure import closure_start, reach_step_plain
+
+    reach = closure_start(table)
+    taken = torch.zeros(table.shape[0], dtype=torch.int64, device=table.device)
+    active = torch.ones_like(taken, dtype=torch.bool)
+    for _ in range(n_steps):
+        nxt = reach_step_plain(reach)
+        taken += active
+        active &= (nxt != reach).flatten(1).any(1)
+        reach = nxt
+    return taken.tolist()
+
+
+def _bench_closure(smoke, table, n_steps, label):
+    torch = smoke.torch
+    from repro_torch.kernels import reach_closure, reach_closure_plain
+    from repro_torch.kernels.reach_closure import closure_start
+
+    d, w, _ = table.shape
+    out_k = reach_closure(table, n_steps)
+    out_p = reach_closure_plain(table, n_steps)
+    torch.cuda.synchronize()
+    err = int((out_k.int() - out_p.int()).abs().max())
+    smoke.check(torch.equal(out_k, out_p), f"reach_closure {label} bit-equal")
+    taken = _squarings_taken(torch, table, n_steps)
+    start = closure_start(table)
+    half = start.bfloat16()
+
+    def cascade(x):
+        """The library yardstick: n_steps torch.bmm calls (no clamp)."""
+        for _ in range(n_steps):
+            y = torch.bmm(x, x)
+        return y
+
+    ms = time_ms(torch, lambda: reach_closure(table, n_steps))
+    plain_ms = time_ms(torch, lambda: reach_closure_plain(table, n_steps))
+    library_ms = time_ms(torch, lambda: cascade(start))
+    dev = {"device_ms": device_ms(torch, lambda: reach_closure(table, n_steps)),
+           "plain_device_ms": device_ms(
+               torch, lambda: reach_closure_plain(table, n_steps)),
+           "library_device_ms": device_ms(torch, lambda: cascade(start)),
+           "library_bf16_ms": time_ms(torch, lambda: cascade(half)),
+           "library_bf16_device_ms": device_ms(torch, lambda: cascade(half))}
+    # the counters read once and the closure written once (one byte each);
+    # the squarings this data needs
+    row = {"shape": f"table{list(table.shape)} n_steps={n_steps}",
+           "squarings_taken": taken, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           **_reach_bound(table.numel() * 4 + out_k.numel(),
+                          sum(taken) * 2 * w ** 3), **dev}
+    print(f"  reach_closure {label}: {json.dumps(row)}")
     return row
 
 
@@ -822,19 +916,22 @@ def _summary(name, source, replaces, launches, main, rows):
             **{k: main[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "device_ms", "plain_device_ms", "library_device_ms")},
+            **{k: main[k] for k in ("bound_fp32_ms", "library_bf16_ms",
+                                    "library_bf16_device_ms") if k in main},
             "kernel_ms": main["ms"],
             "shapes": [{k: r[k] for k in ("label", "shape", "ms", "device_ms",
                                           "plain_ms", "bound_ms")}
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach_launches, fm):
+def phase_kernels(smoke, sl, cmp, reach, fm):
     torch = smoke.torch
     from repro_torch.core import EdgeBatch
     from repro_torch.core import kmatrix_accel as kma
     from repro_torch.core import matrix_sketch as ms
     from repro_torch.core import queries as q
     from repro_torch.kernels import ops, reach_step_plain
+    from repro_torch.kernels.reach_closure import CLOSURE_MAX_W, closure_start
     from repro_torch.streams import sample_stream
 
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 bmm yardstick
@@ -880,19 +977,24 @@ def phase_kernels(smoke, sl, cmp, reach_launches, fm):
         smoke, pool, _random_ints(torch, gen, w, (d, p, c)),
         _random_ints(torch, gen, w, (d, p, c)), "wide"), "wide"))
 
+    # reach_closure: the kMatrix and gMatrix closures of phase D;
     # reach_step: every squaring of the kMatrix closure, the gMatrix
-    # table's first, then a wide one
-    reach_rows = []
+    # table's first, the 2 MB table's first (the path that launches it),
+    # then a wide one
+    close_rows, reach_rows = [], []
     for label, layers in (("kmatrix conn", q.closure_layers(sk)),
-                          ("gmatrix table", q.closure_layers(gm))):
+                          ("gmatrix table", q.closure_layers(gm)),
+                          ("gmatrix 2MB table", q.closure_layers(reach["wide"]))):
         n = layers.shape[-1]
-        reach = torch.clamp((layers > 0).float()
-                            + torch.eye(n, device="cuda"), max=1.0)
+        if n <= CLOSURE_MAX_W:
+            close_rows.append(labelled(_bench_closure(
+                smoke, layers, q._closure_steps(n, None), label), label))
+        r = closure_start(layers)
         steps = q._closure_steps(n, None) if label == "kmatrix conn" else 1
         for step in range(1, steps + 1):
             reach_rows.append(labelled(_bench_reach(
-                smoke, reach, f"{label} step {step}"), f"{label} step {step}"))
-            reach = reach_step_plain(reach)
+                smoke, r, f"{label} step {step}"), f"{label} step {step}"))
+            r = reach_step_plain(r)
     wide_r = (torch.rand((7, 1024, 1024), generator=gen, device="cuda")
               < 0.002).float()
     reach_rows.append(labelled(_bench_reach(
@@ -938,10 +1040,17 @@ def phase_kernels(smoke, sl, cmp, reach_launches, fm):
                  look[0], look),
         _summary("reach_step", "src/repro_torch/kernels/csrc/reach_closure.cu",
                  "src/repro/kernels/reach_closure.py:39",
-                 {**{f"{k} reachability": v
-                     for k, v in reach_launches.items()},
+                 {**{f"{k} reachability": v["reach_step"]
+                     for k, v in reach["launches"].items()},
                   "fm": fm["launches"]["reach_step"]},
-                 reach_rows[0], reach_rows),
+                 next(r for r in reach_rows if r["label"].startswith("gmatrix 2MB")),
+                 reach_rows),
+        _summary("reach_closure", "src/repro_torch/kernels/csrc/reach_closure.cu",
+                 "src/repro/kernels/reach_closure.py:39",
+                 {**{f"{k} reachability": v["reach_closure"]
+                     for k, v in reach["launches"].items()},
+                  "fm": fm["launches"]["reach_closure"]},
+                 close_rows[0], close_rows),
         _summary("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
                  "src/repro/kernels/embedding_bag.py:38",
                  {k: v["embedding_bag"] for k, v in by_path.items()},

@@ -9,8 +9,9 @@
                                 a candidate set
   * path / subgraph weight      composition of edge queries
 
-The closure of a layer is O(log w) boolean squarings; each squaring of all
-d layers is one launch of the ``reach_step`` kernel.  ``build_closure`` and
+The closure of a layer is O(log w) boolean squarings: one launch of the
+``reach_closure`` kernel for all of them where a layer fits one block, else
+one ``reach_step`` launch per squaring of all d layers.  ``build_closure`` and
 the per-pair lookup are split so that a caller can close the layers once and
 answer many pairs.
 """
@@ -36,8 +37,8 @@ def _closure_steps(w: int, max_hops: int | None) -> int:
 
 
 def closure_backend(backend: str | None = None) -> str:
-    """Resolve the closure backend: the ``reach_step`` kernel unless the
-    caller names ``"plain"`` (the plain PyTorch squaring, on any device)."""
+    """Resolve the closure backend: the kernels unless the caller names
+    ``"plain"`` (the plain PyTorch squaring, on any device)."""
     backend = backend or "kernel"
     if backend not in CLOSURE_BACKENDS:
         raise ValueError(f"unknown closure backend {backend!r} "

@@ -3,7 +3,10 @@
   matrix_ingest  — int32 atomic scatter-add sketch ingest (csrc/matrix_ingest.cu)
   matrix_lookup  — gather + min over layers, sketch point queries
                    (csrc/matrix_lookup.cu)
-  reach_step     — tiled boolean squaring for reachability (csrc/reach_closure.cu)
+  reach_step     — one boolean squaring on tensor cores, every layer
+                   (csrc/reach_closure.cu)
+  reach_closure  — the whole boolean closure of every layer in one launch,
+                   for layers that fit one block (csrc/reach_closure.cu)
   embedding_bag  — fixed-arity row gather + sum, the FM's lookups
                    (csrc/embedding_bag.cu)
 
@@ -15,8 +18,14 @@ a CPU tensor takes the plain version.  ``build`` compiles the sources with
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
 from repro_torch.kernels.matrix_ingest import matrix_ingest, matrix_ingest_plain
 from repro_torch.kernels.matrix_lookup import matrix_lookup, matrix_lookup_plain
-from repro_torch.kernels.reach_closure import reach_step, reach_step_plain
+from repro_torch.kernels.reach_closure import (
+    reach_closure,
+    reach_closure_plain,
+    reach_step,
+    reach_step_plain,
+)
 
 __all__ = ["embedding_bag", "embedding_bag_plain", "matrix_ingest",
            "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_plain",
-           "reach_step", "reach_step_plain"]
+           "reach_closure", "reach_closure_plain", "reach_step",
+           "reach_step_plain"]

@@ -23,6 +23,7 @@ import torch
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 KERNELS = ("matrix_ingest", "matrix_lookup", "reach_closure", "embedding_bag")
+SMS = 132  # streaming multiprocessors of an H100 SXM, for launch plans
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

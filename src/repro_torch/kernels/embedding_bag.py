@@ -10,8 +10,10 @@ width.
 
 The kernel (``csrc/embedding_bag.cu``) replaces the Pallas scalar-prefetch
 row gather ``repro/kernels/embedding_bag.py:embedding_bag``; see the source
-for its design.  Kernel, plain version and the Pallas kernel sum in the
-same order with one rounding per step, so the three agree bit for bit.
+for its design; ``bag_plan`` picks its vector width, bags per block and
+staging from the shapes and the table's alignment.  Kernel, plain version
+and the Pallas kernel sum in the same order with one rounding per step, so
+the three agree bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+
+THREADS = 256  # most threads per block
+STAGE_WORDS = 12_000  # staged indices and weights per block: 48,000 bytes
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor,
@@ -102,12 +107,37 @@ def embedding_bag_plain(table: torch.Tensor, idx: torch.Tensor,
     return acc
 
 
+def bag_plan(b: int, f: int, d: int, table_ptr: int,
+             weighted: bool) -> tuple[int, int, int, int, int]:
+    """The kernel's launch plan for B bags of F fields over a D-wide table
+    at address ``table_ptr``:
+    ``(vec, bags_per_block, threads, fields_per_chunk, chunk_stride)``.
+
+    vec: floats per thread and load, the widest of 4, 2, 1 that divides D
+    and the table's alignment.  Bags per block: enough for ``THREADS``
+    threads, but few enough that a small batch still spreads over the SMs.
+    The block stages its bags' fields (and weights) at an odd stride, all
+    at once where they fit ``STAGE_WORDS``, else in chunks.
+    """
+    vec = next(v for v in (4, 2, 1) if d % v == 0 and table_ptr % (4 * v) == 0)
+    per_bag = d // vec
+    nb = max(1, min(THREADS // per_bag, -(-b // build.SMS)))
+    threads = min(THREADS, -(-nb * per_bag // 32) * 32)
+    words = 2 if weighted else 1
+    if nb * (f | 1) * words <= STAGE_WORDS:
+        fc = max(f, 1)
+    else:
+        fc = max(1, STAGE_WORDS // (nb * words) - 1)
+    return vec, nb, threads, fc, fc | 1
+
+
 @functools.cache
 def _launcher():
     lib = build.load("embedding_bag")
     fn = lib.embedding_bag_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     return lib, fn
 
 
@@ -131,11 +161,12 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     b, f = idx.shape
     d = table.shape[1]
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
+    plan = bag_plan(b, f, d, table.data_ptr(), weights is not None)
     lib, fn = _launcher()
     with build.on_device(table.device) as stream:
         code = fn(table.data_ptr(), idx.data_ptr(),
                   None if weights is None else weights.data_ptr(),
-                  out.data_ptr(), b, f, d, stream)
+                  out.data_ptr(), b, f, d, *plan, stream)
     build.check(lib, "embedding_bag", code)
     embedding_bag.launches += 1
     return out

@@ -13,8 +13,9 @@
   are tallied in ``overflow``.  The dispatch is the JAX package's
   (``repro/kernels/ops.py``), so the rectangles and the tally are
   bit-identical to it.
-* ``accel_reach_closure``: boolean closure of every layer, one
-  ``reach_step`` launch per squaring.
+* ``accel_reach_closure``: boolean closure of every layer: one
+  ``reach_closure`` launch where a layer fits one block's shared memory,
+  else one ``reach_step`` launch per squaring.
 * ``embedding_bag``: re-exported, as the JAX package's ``ops`` does; the
   FM (``models/recsys/fm.py``) is its caller.
 """
@@ -29,7 +30,12 @@ from repro_torch.core.matrix_sketch import ingest as accel_matrix_ingest
 from repro_torch.core.types import EdgeBatch
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.kernels.matrix_ingest import matrix_ingest
-from repro_torch.kernels.reach_closure import reach_step
+from repro_torch.kernels.reach_closure import (
+    closure_cascade,
+    closure_fits,
+    reach_closure,
+    reach_step,
+)
 
 __all__ = ["accel_matrix_edge_freq", "accel_matrix_ingest",
            "accel_reach_closure", "embedding_bag", "kmatrix_accel_ingest"]
@@ -40,15 +46,15 @@ def accel_reach_closure(table: torch.Tensor, *, n_steps: int | None = None,
     """Boolean closure of every layer of int32[d, w, w] -> bool[d, w, w].
 
     ``step`` squares all layers once: the ``reach_step`` kernel wrapper, or
-    ``reach_step_plain`` for the plain PyTorch cascade.
+    ``reach_step_plain`` for the plain PyTorch cascade.  With the kernel, a
+    table whose layers fit one block (``closure_fits``) is closed by one
+    ``reach_closure`` launch instead of the cascade.
     """
-    d, w, _ = table.shape
-    eye = torch.eye(w, dtype=torch.float32, device=table.device)
-    reach = torch.clamp((table > 0).to(torch.float32) + eye, max=1.0)
+    w = table.shape[-1]
     steps = n_steps if n_steps is not None else max(1, (w - 1).bit_length())
-    for _ in range(steps):
-        reach = step(reach)
-    return reach > 0.5
+    if step is reach_step and closure_fits(w):
+        return reach_closure(table, steps)
+    return closure_cascade(table, steps, step)
 
 
 def _dispatch(sk: KMatrixAccel, batch: EdgeBatch, capacity: int):

@@ -3,6 +3,8 @@
 These need an NVIDIA card (Hopper: the kernels are built for sm_90a) and
 skip elsewhere.  On the card:  python -m pytest -q -m cuda tests/
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -16,13 +18,21 @@ from repro_torch.kernels import (
     matrix_ingest_plain,
     matrix_lookup,
     matrix_lookup_plain,
+    ops,
+    reach_closure,
+    reach_closure_plain,
     reach_step,
     reach_step_plain,
 )
+from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
+from repro_torch.core import queries as tq
 from repro_torch.launch import stream_ingest
 from repro_torch.models.recsys import fm as tfm
 
 pytestmark = pytest.mark.cuda
+
+# the module, which the package shadows with its wrapper of the same name
+eb = importlib.import_module("repro_torch.kernels.embedding_bag")
 
 
 @pytest.fixture
@@ -53,16 +63,74 @@ def test_matrix_ingest_kernel_equals_plain(card, d, p, w, c):
     assert torch.equal(out, expect)
 
 
-@pytest.mark.parametrize("w", [1, 43, 64, 65, 200])
-def test_reach_step_kernel_equals_plain(card, w):
+# fragment edges (1, 15, 16, 17), the path's widths (43, 136), ragged
+# edges (65, 200), both tile sizes (1024 takes 128 x 128 at d = 3, the
+# rest 32 x 32), sparse to full
+@pytest.mark.parametrize("density", [0.002, 0.05, 1.0])
+@pytest.mark.parametrize("w", [1, 15, 16, 17, 43, 64, 65, 136, 200, 1024])
+def test_reach_step_kernel_equals_plain(card, w, density):
     gen = torch.Generator(device=card).manual_seed(w)
-    reach = (torch.rand((3, w, w), generator=gen, device=card) < 0.05).float()
+    reach = (torch.rand((3, w, w), generator=gen, device=card) < density).float()
     before = reach_step.launches
     for _ in range(3):
         out, expect = reach_step(reach), reach_step_plain(reach)
         assert torch.equal(out, expect)
         reach = out
     assert reach_step.launches == before + 3
+
+
+def _graph(kind: str, w: int, card) -> torch.Tensor:
+    """int32[2, w, w] counters: a path 0 -> 1 -> ... (its closure needs
+    every squaring), a complete graph (one squaring) or a sparse random
+    graph, the second layer a shuffled copy of the first."""
+    if kind == "path":
+        layer = torch.zeros((w, w), dtype=torch.int32)
+        layer[torch.arange(w - 1), torch.arange(1, w)] = 3
+    elif kind == "complete":
+        layer = torch.ones((w, w), dtype=torch.int32)
+    else:
+        rng = np.random.default_rng(w)
+        layer = torch.as_tensor((rng.integers(1, 4, (w, w))
+                                 * (rng.random((w, w)) < 2.0 / w)).astype(np.int32))
+    perm = torch.as_tensor(np.random.default_rng(w + 1).permutation(w))
+    return torch.stack([layer, layer[perm][:, perm]]).contiguous().to(card)
+
+
+@pytest.mark.parametrize("max_hops", [None, 3])
+@pytest.mark.parametrize("kind", ["path", "complete", "random"])
+@pytest.mark.parametrize("w", [1, 2, 15, 16, 17, 43, 100, 136, 200,
+                               CLOSURE_MAX_W])
+def test_reach_closure_kernel_equals_plain(card, w, kind, max_hops):
+    table = _graph(kind, w, card)
+    steps = tq._closure_steps(w, max_hops)
+    before = reach_closure.launches
+    out = reach_closure(table, steps)
+    assert reach_closure.launches == before + 1
+    expect = reach_closure_plain(table, steps)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bool and out.shape == (2, w, w)
+    assert torch.equal(out, expect)
+    if kind == "path" and max_hops is None and w > 2:
+        upper = torch.ones((w, w), dtype=torch.bool, device=card).triu()
+        assert torch.equal(out[0], upper)
+        # the path needs all ceil(log2(w - 1)) squarings: one fewer leaves
+        # its far end unreached
+        need = (w - 2).bit_length()
+        assert bool(reach_closure(table, need)[0, 0, w - 1])
+        assert not bool(reach_closure(table, need - 1)[0, 0, w - 1])
+
+
+def test_accel_reach_closure_above_the_limit_cascades(card):
+    w = CLOSURE_MAX_W + 1
+    table = _graph("random", w, card)
+    steps = tq._closure_steps(w, None)
+    before = (reach_closure.launches, reach_step.launches)
+    out = ops.accel_reach_closure(table)
+    assert (reach_closure.launches, reach_step.launches) == (
+        before[0], before[1] + steps)
+    assert torch.equal(out, reach_closure_plain(table, steps))
+    with pytest.raises(ValueError, match=f"w <= {CLOSURE_MAX_W}"):
+        reach_closure(table, steps)
 
 
 @pytest.mark.parametrize("d,p,w,c", [(1, 1, 8, 32), (7, 1, 136, 10_000),
@@ -148,6 +216,68 @@ def test_embedding_bag_kernel_equals_plain(card, v, d, b, f, weighted):
     torch.cuda.synchronize()
     assert out.shape == (b, d) and out.dtype == torch.float32
     assert torch.equal(out, expect)
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["sum", "weighted"])
+@pytest.mark.parametrize("f", [1, 31, 32, 33, 39, 64])
+@pytest.mark.parametrize("d", [1, 2, 3, 10, 16, 128])
+def test_embedding_bag_vector_paths_equal_plain(card, d, f, weighted):
+    """Every vector width (D = 1, 3: float; 2, 10: float2; 16, 128:
+    float4), field counts around a warp, a ragged B of small and large
+    batches (4 bags a block and full blocks)."""
+    rng = np.random.default_rng(d * 100 + f)
+    v = 5000
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=card)
+    for b in (1, 300, 4099):
+        idx = torch.as_tensor(rng.integers(0, v, (b, f)).astype(np.int32),
+                              device=card)
+        wts = (torch.as_tensor(rng.normal(size=(b, f)).astype(np.float32),
+                               device=card) if weighted else None)
+        before = embedding_bag.launches
+        out = embedding_bag(table, idx, wts)
+        assert embedding_bag.launches == before + 1
+        expect = embedding_bag_plain(table, idx, wts)
+        torch.cuda.synchronize()
+        assert torch.equal(out, expect), (b, f, d)
+
+
+@pytest.mark.parametrize("d", [2, 10, 16])
+def test_embedding_bag_unaligned_table_takes_the_scalar_path(card, d):
+    """A contiguous table view 4 bytes past an 8-byte boundary: the plan
+    falls back to scalar loads, and the result stays bit-equal."""
+    rng = np.random.default_rng(d)
+    v, b, f = 3000, 700, 39
+    flat = torch.as_tensor(rng.normal(size=v * d + 1).astype(np.float32),
+                           device=card)
+    table = flat[1:].view(v, d)
+    assert table.is_contiguous() and table.data_ptr() % 8 == 4
+    assert eb.bag_plan(b, f, d, table.data_ptr(), False)[0] == 1
+    idx = torch.as_tensor(rng.integers(0, v, (b, f)).astype(np.int32),
+                          device=card)
+    wts = torch.as_tensor(rng.normal(size=(b, f)).astype(np.float32),
+                          device=card)
+    for w in (None, wts):
+        assert torch.equal(embedding_bag(table, idx, w),
+                           embedding_bag_plain(table, idx, w))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["sum", "weighted"])
+def test_embedding_bag_staged_in_chunks_equals_plain(card, weighted):
+    """More fields than a block can stage at once: the partial sums pass
+    through the output between chunks, unchanged in order and bits."""
+    rng = np.random.default_rng(5)
+    v, b, f, d = 2000, 40_000, 200, 1
+    plan = eb.bag_plan(b, f, d, 256, weighted)
+    assert plan[3] < f  # chunked
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=card)
+    idx = torch.as_tensor(rng.integers(0, v, (b, f)).astype(np.int32),
+                          device=card)
+    wts = (torch.as_tensor(rng.normal(size=(b, f)).astype(np.float32),
+                           device=card) if weighted else None)
+    out = embedding_bag(table, idx, wts)
+    assert torch.equal(out, embedding_bag_plain(table, idx, wts))
 
 
 def test_embedding_bag_checks_inputs_on_card(card):

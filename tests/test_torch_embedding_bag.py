@@ -1,5 +1,7 @@
 """The port's embedding_bag (its plain version, the CPU path of the wrapper)
 vs the JAX package's Pallas kernel in interpret mode and its oracle."""
+import importlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -8,7 +10,10 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.embedding_bag import embedding_bag as j_embedding_bag
 from repro_torch.kernels import embedding_bag, embedding_bag_plain
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
+
+# the module, which the package shadows with its wrapper of the same name
+eb = importlib.import_module("repro_torch.kernels.embedding_bag")
 
 
 def _inputs(v, d, b, f, seed):
@@ -110,3 +115,45 @@ def test_launch_counter_stays_zero_on_cpu_and_ops_reexports():
     embedding_bag(table, idx)
     embedding_bag(table, idx, wts)
     assert embedding_bag.launches == 0
+
+
+@pytest.mark.parametrize("d,ptr,vec", [
+    (1, 256, 1), (10, 256, 2), (10, 260, 1), (16, 256, 4), (16, 264, 2),
+    (16, 260, 1), (128, 4096, 4), (3, 256, 1), (2, 8, 2)])
+def test_bag_plan_vector_width_from_d_and_alignment(d, ptr, vec):
+    """The widest of float4, float2, float that divides D and the table's
+    alignment; any D and any 4-byte alignment keep the scalar path."""
+    assert eb.bag_plan(512, 39, d, ptr, False)[0] == vec
+
+
+@pytest.mark.parametrize("b,d", [(1, 10), (512, 1), (512, 10), (262_144, 1),
+                                 (262_144, 10), (1_000_000, 10), (3, 1000),
+                                 (7, 4096)])
+def test_bag_plan_spreads_bags_over_the_card(b, d):
+    vec, nb, threads, _, _ = eb.bag_plan(b, 39, d, 256, False)
+    per_bag = d // vec
+    assert threads % 32 == 0 and 32 <= threads <= eb.THREADS
+    assert nb * per_bag <= max(eb.THREADS, per_bag)  # one pass, or one bag
+    # a large batch fills its blocks; a small one takes the fewest bags a
+    # block that still keep to one block per SM, so it spreads over them
+    if nb < max(1, eb.THREADS // per_bag):
+        assert -(-b // nb) <= build.SMS
+        assert nb == 1 or -(-b // (nb - 1)) > build.SMS
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["sum", "weighted"])
+@pytest.mark.parametrize("b,f,d", [(512, 39, 1), (262_144, 39, 1),
+                                   (262_144, 64, 1), (40_000, 200, 1),
+                                   (1000, 5000, 10), (5, 0, 3), (5, 1, 3),
+                                   (262_144, 39, 10)])
+def test_bag_plan_staging_fits_shared_memory(b, f, d, weighted):
+    """Indices (and weights) of a block's bags are staged at an odd stride,
+    in one chunk where they fit 48,000 bytes, else in chunks that do."""
+    _, nb, _, fc, fs = eb.bag_plan(b, f, d, 256, weighted)
+    words = 2 if weighted else 1
+    assert fs % 2 == 1 and fs >= fc >= 1
+    assert nb * fs * words <= eb.STAGE_WORDS
+    if nb * (f | 1) * words <= eb.STAGE_WORDS:
+        assert fc == max(f, 1)
+    else:
+        assert fc < f and nb * (fc + 2) * words > eb.STAGE_WORDS - nb * words

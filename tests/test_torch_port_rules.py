@@ -34,6 +34,7 @@ from repro_torch.kernels import (
     embedding_bag,
     matrix_ingest,
     matrix_lookup,
+    reach_closure,
     reach_step,
 )
 from repro_torch.launch import stream_ingest
@@ -92,7 +93,7 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_card():
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
     matrix_ingest.launches = matrix_lookup.launches = reach_step.launches = 0
-    embedding_bag.launches = 0
+    embedding_bag.launches = reach_closure.launches = 0
     stream = make_stream("cit-HepPh", batch_size=1024, scale=0.01)
     s, d, w = stream.batch_numpy(0)
     sk = KMatrixAccel.create(bytes_budget=1 << 16,
@@ -109,7 +110,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     assert bool((est >= 1).all())
     assert tq.reachability(gm, torch.as_tensor(s), torch.as_tensor(d)).all()
     assert matrix_ingest.launches == matrix_lookup.launches == 0
-    assert reach_step.launches == 0
+    assert reach_step.launches == reach_closure.launches == 0
     cfg = tfm.FMConfig(total_vocab=5_000, n_fields=7)
     fm = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     ids = torch.randint(0, 1 << 30, (4, 7), dtype=torch.int32)
@@ -126,12 +127,16 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         reach_step(torch.zeros((1, 4, 4), device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
+        reach_closure(torch.zeros((1, 4, 4), dtype=torch.int32,
+                                  device="meta"), 1)
+    with pytest.raises(ValueError, match="cuda or cpu"):
         matrix_lookup(pool, hi, hi)
     with pytest.raises(ValueError, match="cuda or cpu"):
         embedding_bag(torch.zeros((4, 10), device="meta"),
                       torch.zeros((2, 3), dtype=torch.int32, device="meta"))
     assert matrix_ingest.launches == 0 and reach_step.launches == 0
     assert matrix_lookup.launches == 0 and embedding_bag.launches == 0
+    assert reach_closure.launches == 0
 
 
 def _flag(flags, name):
