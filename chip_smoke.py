@@ -28,18 +28,23 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      banded partitioner, 10,000 evaluation queries, through the port's
      ``stream_ingest`` entry point on ``cuda`` with the width-class layout.
      Launch counts are zeroed just before and read just after: every batch
-     must launch ``matrix_ingest`` once per non-empty width class.  The same
-     stream is ingested again through the flat layout on the card and
-     through the plain versions on the CPU (which the CPU tests hold against
-     the JAX package): counters and ARE must be identical.
+     must launch ``matrix_ingest_edges`` once (52) and the rectangle
+     ``matrix_ingest`` never.  The same stream is ingested again through
+     the flat layout on the card and through the plain versions on the CPU
+     (which the CPU tests hold against the JAX package): counters, conn,
+     the overflow tally and ARE must be identical.  Then the same stream at
+     a forced capacity of 128, so that the tally is nonzero: the edge
+     ingest on the card, its plain version on the CPU and the rectangle
+     dispatch (``ops.rectangle_ingest``) on the card must agree.
   F. The paper's comparison (Fig. 7 at 512 KB): the same driver at the
      same flags with ``--sketch countmin|gsketch|tcm|gmatrix``, and with
      ``--sketch kmatrix --sketch-backend flat``, on ``cuda`` and on the
      CPU.  Counters and ARE must be identical; every TCM/gMatrix run must
-     launch ``matrix_ingest`` once per batch (52) and ``matrix_lookup`` once
-     (its 10,000 evaluation queries).  One line per sketch (ARE, M edges/s
-     end to end, launches) and the ARE ordering, the width-class kMatrix's
-     from phase C; the ordering is printed, not gated.
+     launch ``matrix_ingest_edges`` once per batch (52) and
+     ``matrix_lookup_edges`` once (its 10,000 evaluation queries), and no
+     rectangle entry point.  One line per sketch (ARE, M edges/s end to
+     end, launches) and the ARE ordering, the width-class kMatrix's from
+     phase C; the ordering is printed, not gated.
   D. Reachability: the closure of the kMatrix sketch's connectivity layers
      (w = 43) and of the gMatrix table (w = 136), each one ``reach_closure``
      launch, and of a gMatrix table at 2 MB (w = 273, wider than one
@@ -51,11 +56,17 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      uninterrupted phase-C sketch.
   E. A profile of the main path's ingest loop: host time per batch for
      making, copying and issuing it, the device's busy and idle shares, and
-     the top operations by device and host time.
+     the top operations by device and host time, for the edge ingest and,
+     in the same run, for the rectangle dispatch (rectangles, edges,
+     edges, rectangles).
   B. Each kernel against its plain version on the card, on the inputs the
-     main paths give it (kMatrix classes and the P = 1 gMatrix table for
-     ``matrix_ingest``, the gMatrix evaluation queries for ``matrix_lookup``,
-     the kMatrix and gMatrix closures for ``reach_closure`` and their
+     main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
+     P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
+     2^24; ``matrix_lookup_edges``: the gMatrix evaluation queries; the
+     rectangle ``matrix_ingest`` on the rectangles ``ops.dispatch_rectangles``
+     builds from the kMatrix batch and on the gMatrix batch's
+     ``node_cells``, ``matrix_lookup`` on the queries' ``node_cells``; the
+     kMatrix and gMatrix closures for ``reach_closure`` and their
      squarings for ``reach_step``, every bag of phase G for
      ``embedding_bag``) plus one wide shape each for the sketch kernels
      (``reach_step`` also at phase D's 2 MB table): bit-equal results, and
@@ -211,8 +222,9 @@ class Smoke:
             return None
 
 
-KERNEL_NAMES = ("matrix_ingest", "matrix_lookup", "reach_step",
-                "reach_closure", "embedding_bag")
+KERNEL_NAMES = ("matrix_ingest", "matrix_ingest_edges", "matrix_lookup",
+                "matrix_lookup_edges", "reach_step", "reach_closure",
+                "embedding_bag")
 
 
 def _wrappers() -> dict:
@@ -286,12 +298,14 @@ def phase_slice(smoke):
     print(f"  launches on the main path: {launches}")
     smoke.check(type(sk).__name__ == "KMatrixAccel", "width-class sketch")
     smoke.check(run["batches"] == 52, f"52 batches (got {run['batches']})")
-    smoke.check(launches["matrix_ingest"] == run["batches"] * classes,
-                f"matrix_ingest launches == batches x classes "
-                f"({run['batches']} x {classes})")
+    smoke.check(launches["matrix_ingest_edges"] == run["batches"],
+                f"matrix_ingest_edges launches == batches ({run['batches']}; "
+                f"{classes} classes, one launch each batch)")
+    smoke.check(launches["matrix_ingest"] == 0,
+                "no rectangle matrix_ingest launch on the main path")
     smoke.check(launches["reach_step"] == launches["reach_closure"] == 0,
                 "no reach_step or reach_closure launch in ingest")
-    smoke.check(launches["matrix_lookup"] == 0,
+    smoke.check(launches["matrix_lookup"] == launches["matrix_lookup_edges"] == 0,
                 "no matrix_lookup launch (width-class queries are gathers)")
     smoke.check(launches["embedding_bag"] == 0, "no embedding_bag launch")
     rate = run["n_edges"] / run["ingest_seconds"] / 1e6
@@ -326,7 +340,39 @@ def phase_slice(smoke):
                 "routes, hashes")
     smoke.check(cpu["ARE"] == run["ARE"],
                 f"ARE cuda == cpu ({run['ARE']!r} vs {cpu['ARE']!r})")
+    _forced_overflow(smoke, sk, cpu["sketch"], stream)
     return {"run": run, "cpu": cpu, "launches": launches, "rate": rate}
+
+
+def _forced_overflow(smoke, sk, sk_cpu, stream, capacity: int = 128):
+    """The main path's stream at a forced dispatch capacity, so that the
+    overflow tally is nonzero: the edge ingest on the card, its plain
+    version on the CPU and the rectangle dispatch on the card."""
+    from repro_torch.core import EdgeBatch
+    from repro_torch.core import kmatrix_accel as kma
+    from repro_torch.kernels import ops
+
+    edges, rect, cpu = (kma.empty_like(sk), kma.empty_like(sk),
+                        kma.empty_like(sk_cpu))
+    for i in range(stream.num_batches):
+        arrays = stream.batch_numpy(i)
+        batch = EdgeBatch.from_numpy(*arrays, device="cuda")
+        kma.ingest(edges, batch, capacity=capacity)
+        ops.rectangle_ingest(rect, batch, capacity=capacity)
+        kma.ingest(cpu, EdgeBatch.from_numpy(*arrays, device="cpu"),
+                   capacity=capacity)
+    tally = int(edges.overflow)
+    print(f"  capacity {capacity}: overflow tally {tally} (edge ingest), "
+          f"{int(rect.overflow)} (rectangles), {int(cpu.overflow)} (cpu)")
+    smoke.check(tally > 0, f"capacity {capacity}: a nonzero overflow tally")
+    smoke.check(same_state(edges, cpu),
+                f"capacity {capacity}: cuda edge ingest == cpu plain "
+                "(pools, conn, overflow)")
+    smoke.check(same_state(edges, rect),
+                f"capacity {capacity}: cuda edge ingest == rectangle dispatch "
+                "(pools, conn, overflow)")
+    smoke.check(same_state(edges.replace(overflow=sk.overflow), sk),
+                f"capacity {capacity}: the counters do not depend on capacity")
 
 
 def phase_compare(smoke, sl):
@@ -360,9 +406,9 @@ def phase_compare(smoke, sl):
         smoke.check(run["ARE"] == cpu["ARE"] and math.isfinite(run["ARE"]),
                     f"{kind}: ARE cuda == cpu ({run['ARE']!r})")
         matrix = kind in ("tcm", "gmatrix")
-        expect = {"matrix_ingest": run["batches"] if matrix else 0,
-                  "matrix_lookup": 1 if matrix else 0, "reach_step": 0,
-                  "reach_closure": 0, "embedding_bag": 0}
+        expect = {k: 0 for k in KERNEL_NAMES}
+        expect["matrix_ingest_edges"] = run["batches"] if matrix else 0
+        expect["matrix_lookup_edges"] = 1 if matrix else 0
         smoke.check(launches[kind] == expect,
                     f"{kind}: launches {launches[kind]} == {expect}")
         runs[kind], cpus[kind] = run, cpu
@@ -483,18 +529,15 @@ def phase_reach(smoke, sl, cmp):
     return {"launches": launches, "wide": wide["cuda"]}
 
 
-def phase_profile(smoke, sl):
-    """Where one batch's time goes on the main path: host time of making
-    the batch, of copying it to the card and of issuing the ingest, and
-    the device time of what the ingest launched (torch.profiler)."""
+def _profile_loop(smoke, stream, sk, ingest, label, show_top):
+    """One pass of the ingest loop over ``stream`` under the profiler:
+    host time per batch of making, copying and issuing it, and the device
+    time of what the ingest launched."""
     torch = smoke.torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import EdgeBatch
-    from repro_torch.core import kmatrix_accel as kma
 
-    stream = sl["run"]["stream"]
-    sk = kma.empty_like(sl["run"]["sketch"])
     n = stream.num_batches
     t = {"make": 0.0, "copy": 0.0, "issue": 0.0}
     torch.cuda.synchronize()
@@ -506,7 +549,7 @@ def phase_profile(smoke, sl):
             t1 = time.perf_counter()
             batch = EdgeBatch.from_numpy(*arrays, device="cuda")
             t2 = time.perf_counter()
-            kma.ingest(sk, batch)
+            ingest(sk, batch)
             t3 = time.perf_counter()
             t["make"] += t1 - t0
             t["copy"] += t2 - t1
@@ -515,22 +558,48 @@ def phase_profile(smoke, sl):
         wall = time.perf_counter() - wall0
     events = prof.key_averages()
     device_ms = sum(_self_device_us(e) for e in events) / 1e3
-    per_batch = {k: v / n * 1e3 for k, v in t.items()}
-    print(f"  per batch (ms, host clock, profiler on): {json.dumps(per_batch)}; "
-          f"wall {wall / n * 1e3:.3f}")
-    print(f"  device busy {device_ms / n:.4f} ms/batch = "
-          f"{device_ms / (wall * 1e3):.3%} of wall (idle share "
-          f"{1 - device_ms / (wall * 1e3):.3%})")
-    top = sorted(events, key=_self_device_us, reverse=True)[:12]
-    for e in top:
-        if _self_device_us(e) > 0:
-            print(f"    device {_self_device_us(e) / n:9.2f} us/batch  "
+    row = {**{f"{k}_ms": v / n * 1e3 for k, v in t.items()},
+           "wall_ms": wall / n * 1e3, "device_busy_ms": device_ms / n,
+           "idle_share": 1 - device_ms / (wall * 1e3)}
+    print(f"  {label}, per batch (host clock, profiler on): {json.dumps(row)}")
+    if show_top:
+        top = sorted(events, key=_self_device_us, reverse=True)[:8]
+        for e in top:
+            if _self_device_us(e) > 0:
+                print(f"    device {_self_device_us(e) / n:9.2f} us/batch  "
+                      f"x{e.count / n:5.1f}  {e.key[:90]}")
+        top = sorted(events, key=lambda e: e.self_cpu_time_total,
+                     reverse=True)[:8]
+        for e in top:
+            print(f"    host   {e.self_cpu_time_total / n:9.2f} us/batch  "
                   f"x{e.count / n:5.1f}  {e.key[:90]}")
-    top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    for e in top:
-        print(f"    host   {e.self_cpu_time_total / n:9.2f} us/batch  "
-              f"x{e.count / n:5.1f}  {e.key[:90]}")
-    return per_batch
+    return row
+
+
+def phase_profile(smoke, sl):
+    """Where one batch's time goes on the main path, for the edge ingest
+    and the rectangle dispatch in turn (rectangles, edges, edges,
+    rectangles), on fresh sketches; both must end equal."""
+    from repro_torch.core import kmatrix_accel as kma
+    from repro_torch.kernels import ops
+
+    stream = sl["run"]["stream"]
+    designs = {"edges": kma.ingest, "rectangles": ops.rectangle_ingest}
+    rows = {name: [] for name in designs}
+    finals = {}
+    for turn, name in enumerate(("rectangles", "edges", "edges", "rectangles")):
+        sk = kma.empty_like(sl["run"]["sketch"])
+        rows[name].append(_profile_loop(smoke, stream, sk, designs[name],
+                                        f"{name} (turn {turn + 1})",
+                                        show_top=turn < 2))
+        finals[name] = sk
+    smoke.check(same_state(finals["edges"], finals["rectangles"])
+                and same_state(finals["edges"], sl["run"]["sketch"]),
+                "profiled edge ingest == rectangle dispatch == phase C sketch")
+    summary = {name: {k: statistics.mean(r[k] for r in runs) for k in runs[0]}
+               for name, runs in rows.items()}
+    print(f"  summary, mean of two turns each: {json.dumps(summary)}")
+    return summary
 
 
 def _capture_bags(torch, fn):
@@ -658,25 +727,6 @@ def phase_fm(smoke, card):
     print(f"  launches on the FM path: {fm_launches}; phase G "
           f"{time.perf_counter() - t_phase:.1f}s")
     return {"launches": fm_launches, "bags": bags, "summary": summary}
-
-
-def _capture_calls(torch, module, name, fn):
-    """The tensor arguments ``fn()`` hands the kernel wrapper ``name`` of
-    ``module``, one tuple per call, captured (cloned) from a real run."""
-    calls = []
-    real = getattr(module, name)
-
-    def record(*args, **kwargs):
-        calls.append(tuple(a.clone() for a in args))
-        return real(*args, **kwargs)
-
-    setattr(module, name, record)
-    try:
-        fn()
-    finally:
-        setattr(module, name, real)
-    torch.cuda.synchronize()
-    return calls
 
 
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
@@ -899,6 +949,211 @@ def _bench_bag(smoke, table, idx, weights, label):
     return row
 
 
+def _route_reads(torch, keys, v) -> tuple[int, int]:
+    """Distinct key and part entries that ``sketch::route`` reads for the
+    ids ``v``: the keys its left binary searches probe (and the final
+    compare), the parts of the keys found."""
+    n = keys.shape[0]
+    if n == 0 or v.numel() == 0:
+        return 0, 0
+    lo = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    hi = torch.full_like(lo, n)
+    probed = []
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        probed.append(mid[active])
+        less = active & (keys[mid.clamp(max=n - 1)] < v)
+        lo = torch.where(less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    at = lo.clamp(max=n - 1)
+    probed.append(at[lo < n])
+    found = (lo < n) & (keys[at] == v)
+    return (int(torch.unique(torch.cat(probed)).numel()),
+            int(torch.unique(at[found]).numel()))
+
+
+def _edge_updates(torch, sk, batch):
+    """The counter updates one edge-ingest launch makes: per counter
+    tensor, its flat cell indices (int64[d, n]) and the weights added
+    there, as the kernel addresses them."""
+    from repro_torch.common.hashing import fastrange, mix
+
+    d = sk.depth
+    layer = torch.arange(d, device=batch.src.device)[:, None]
+    hs, ht = (mix(sk.hashes.a, sk.hashes.b, x) for x in (batch.src, batch.dst))
+    w = batch.weight
+    if not hasattr(sk, "pools"):  # P = 1: every nonzero weight
+        e = (w != 0).nonzero().squeeze(1)
+        cells = (layer * sk.w + fastrange(hs[:, e], sk.w)) * sk.w \
+            + fastrange(ht[:, e], sk.w)
+        return [(sk.table, cells, w[e].expand(d, -1))]
+    p = sk.route.lookup(batch.src).long()
+    cls, row = sk.part_class[p], sk.part_index[p].long()
+    out = []
+    for c, pool in enumerate(sk.pools):
+        e = ((w > 0) & (cls == c)).nonzero().squeeze(1)
+        n_c, w_c = pool.shape[1], pool.shape[-1]
+        cells = ((layer * n_c + row[e]) * w_c + fastrange(hs[:, e], w_c)) \
+            * w_c + fastrange(ht[:, e], w_c)
+        out.append((pool, cells, w[e].expand(d, -1)))
+    if sk.conn_w > 0:
+        e = (w != 0).nonzero().squeeze(1)
+        cw = sk.conn_w
+        cells = (layer * cw + fastrange(hs[:, e], cw)) * cw \
+            + fastrange(ht[:, e], cw)
+        out.append((sk.conn, cells, w[e].expand(d, -1)))
+    return out
+
+
+def _bench_ingest_edges(smoke, sk, batch, label, capacity=None):
+    """``matrix_ingest_edges`` on one batch into a fresh copy of ``sk``'s
+    layout (routed for the kMatrix, P = 1 for TCM / gMatrix) against its
+    plain version: every leaf (pools, conn, overflow) bit-equal."""
+    torch = smoke.torch
+    import importlib
+
+    from repro_torch import interop
+    from repro_torch.core import kmatrix_accel as kma
+    from repro_torch.core import matrix_sketch as ms
+    from repro_torch.kernels import matrix_ingest_edges, matrix_ingest_edges_plain
+
+    routed = hasattr(sk, "pools")
+    empty = kma.empty_like if routed else ms.empty_like
+    if routed and capacity is None:
+        capacity = kma.dispatch_capacity(sk, batch.size)
+
+    def args(s):
+        if not routed:
+            return ((s.table.unsqueeze(1),), s.hashes.a, s.hashes.b, batch.src,
+                    batch.dst, batch.weight), {}
+        return ((s.pools, s.hashes.a, s.hashes.b, batch.src, batch.dst,
+                 batch.weight),
+                dict(route=s.route, part_class=s.part_class,
+                     part_index=s.part_index, conn=s.conn,
+                     overflow=s.overflow, capacity=capacity))
+
+    out_k, out_p = empty(sk), empty(sk)
+    a, kw = args(out_k)
+    matrix_ingest_edges(*a, **kw)
+    a, kw = args(out_p)
+    matrix_ingest_edges_plain(*a, **kw)
+    torch.cuda.synchronize()
+    lk, lp = interop.export_state(out_k)[0], interop.export_state(out_p)[0]
+    err = max(int(abs(lk[k].astype("int64") - lp[k].astype("int64")).max())
+              if lk[k].size else 0 for k in lk)
+    smoke.check(err == 0 and sorted(lk) == sorted(lp),
+                f"matrix_ingest_edges {label} bit-equal (pools, conn, overflow)")
+    acc_k, acc_p = empty(sk), empty(sk)
+    ka, kkw = args(acc_k)
+    pa, pkw = args(acc_p)
+    updates = _edge_updates(torch, sk, batch)
+    # the library yardstick: one accumulating index_put_ of every update
+    # into one flat buffer of all the counters (the hashing, routing and
+    # tally it leaves out are most of the function)
+    sizes = [t.numel() for t, _, _ in updates]
+    base = [sum(sizes[:i]) for i in range(len(sizes))]
+    flat = torch.zeros(sum(sizes), dtype=torch.int32, device="cuda")
+    idx = torch.cat([(c + o).reshape(-1) for (_, c, _), o in zip(updates, base)])
+    vals = torch.cat([v.reshape(-1) for _, _, v in updates])
+
+    def kernel():
+        matrix_ingest_edges(*ka, **kkw)
+
+    def plain():
+        matrix_ingest_edges_plain(*pa, **pkw)
+
+    def library():
+        flat.index_put_((idx,), vals, accumulate=True)
+
+    ms_, plain_ms, library_ms = (time_ms(torch, f) for f in (kernel, plain, library))
+    dev = {"device_ms": device_ms(torch, kernel),
+           "plain_device_ms": device_ms(torch, plain),
+           "library_device_ms": device_ms(torch, library)}
+    if routed and label.endswith("batch 0"):
+        # the launch plan's measurement: layers a thread adds
+        mod = importlib.import_module("repro_torch.kernels.matrix_ingest")
+        keep = mod.LAYERS_PER_THREAD
+        try:
+            by_layers = {}
+            for n in sorted({1, 2, sk.depth}):
+                mod.LAYERS_PER_THREAD = n
+                by_layers[n] = device_ms(torch, kernel)
+        finally:
+            mod.LAYERS_PER_THREAD = keep
+        dev["device_ms_by_layers_per_thread"] = by_layers
+    # bytes this call's data needs: src, dst and weight once, the hash
+    # parameters, the route keys and parts the searches read, each used
+    # partition's class and row, one 32-byte sector per updated counter
+    # sector (a read-modify-write in L2)
+    b, d = batch.size, sk.depth
+    nbytes = 12 * b + 16 * d
+    if routed:
+        live = batch.src[batch.weight > 0]
+        keys_read, parts_read = _route_reads(torch, sk.route.keys, live)
+        used = int(torch.unique(sk.route.lookup(live)).numel())
+        nbytes += 4 * (keys_read + parts_read) + 8 * used
+    sectors = sum(int(torch.unique(c // 8).numel()) for _, c, _ in updates)
+    nbytes += 32 * sectors
+    row = {"shape": f"B={b} d={d} " + (
+               " ".join(f"pool{list(p.shape)}" for p in sk.pools)
+               + f" conn{list(sk.conn.shape)} capacity={capacity}"
+               if routed else f"table{list(sk.table.shape)}"),
+           "updates": int(vals.numel()), "sectors_updated": sectors,
+           "overflow": int(out_k.overflow) if routed else None,
+           "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "library_call": "index_put_(accumulate=True) on precomputed flat "
+                           "cells: the scatter only",
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", **dev}
+    print(f"  matrix_ingest_edges {label}: {json.dumps(row)}")
+    return row
+
+
+def _bench_lookup_edges(smoke, table, a, b, src, dst, label):
+    torch = smoke.torch
+    from repro_torch.common.hashing import fastrange, mix
+    from repro_torch.kernels import matrix_lookup_edges, matrix_lookup_edges_plain
+
+    d, w, _ = table.shape
+    out_k = matrix_lookup_edges(table, a, b, src, dst)
+    out_p = matrix_lookup_edges_plain(table, a, b, src, dst)
+    torch.cuda.synchronize()
+    err = int((out_k.long() - out_p.long()).abs().max()) if out_k.numel() else 0
+    smoke.check(torch.equal(out_k, out_p), f"matrix_lookup_edges {label} bit-equal")
+    cells = (fastrange(mix(a, b, src), w).long() * w
+             + fastrange(mix(a, b, dst), w))  # int64[d, n], within each layer
+    flat = table.view(d, -1)
+
+    def library():
+        """The yardstick: gather + amin on precomputed cells (no hashing)."""
+        return torch.gather(flat, 1, cells).amin(0)
+
+    smoke.check(torch.equal(library(), out_p),
+                f"matrix_lookup_edges {label}: gather + amin agrees")
+    ms_ = time_ms(torch, lambda: matrix_lookup_edges(table, a, b, src, dst))
+    plain_ms = time_ms(torch, lambda: matrix_lookup_edges_plain(table, a, b, src, dst))
+    library_ms = time_ms(torch, library)
+    dev = {"device_ms": device_ms(
+               torch, lambda: matrix_lookup_edges(table, a, b, src, dst)),
+           "plain_device_ms": device_ms(
+               torch, lambda: matrix_lookup_edges_plain(table, a, b, src, dst)),
+           "library_device_ms": device_ms(torch, library)}
+    # bytes this call's data needs: src and dst once, out once, the hash
+    # parameters, and each 32-byte sector of the table the queries address
+    layer = torch.arange(d, device="cuda")[:, None]
+    sectors = int(torch.unique((layer * w * w + cells) // 8).numel())
+    nbytes = 12 * src.numel() + 16 * d + 32 * sectors
+    row = {"shape": f"table{list(table.shape)} n={src.numel()}",
+           "sectors_gathered": sectors, "max_abs_err": err, "ms": ms_,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_call": "torch.gather + amin on precomputed cells: the "
+                           "lookup without its hashing",
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", **dev}
+    print(f"  matrix_lookup_edges {label}: {json.dumps(row)}")
+    return row
+
+
 def _random_ints(torch, gen, hi, shape):
     return torch.randint(0, hi, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -926,6 +1181,8 @@ def _summary(name, source, replaces, launches, main, rows):
 
 def phase_kernels(smoke, sl, cmp, reach, fm):
     torch = smoke.torch
+    import numpy as np
+
     from repro_torch.core import EdgeBatch
     from repro_torch.core import kmatrix_accel as kma
     from repro_torch.core import matrix_sketch as ms
@@ -944,18 +1201,40 @@ def phase_kernels(smoke, sl, cmp, reach, fm):
         row["label"] = label
         return row
 
-    # matrix_ingest: the kMatrix classes of batch 0, gMatrix's P = 1 table
-    calls = _capture_calls(torch, ops, "matrix_ingest",
-                           lambda: kma.ingest(kma.empty_like(sk), batch))
-    smoke.check(len(calls) == sum(1 for n in sk.class_counts if n),
-                "one captured launch per non-empty class")
-    kmat = [labelled(_bench_ingest(smoke, *call, f"kmatrix class {i}"),
-                     f"kmatrix class {i}") for i, call in enumerate(calls)]
-    calls = _capture_calls(torch, ms, "matrix_ingest",
-                           lambda: ms.ingest(ms.empty_like(gm), batch))
-    smoke.check(len(calls) == 1 and tuple(calls[0][0].shape) == (7, 1, 136, 136),
-                "gmatrix ingest: one launch on pool [7, 1, 136, 136]")
-    p1 = labelled(_bench_ingest(smoke, *calls[0], "gmatrix P=1"), "gmatrix P=1")
+    # matrix_ingest_edges: batch 0 of the main path into the kMatrix and
+    # the gMatrix, the same batch at a forced capacity (a nonzero tally),
+    # and with turnstile weights, and with weights whose cells pass 2^24
+    b = batch.size
+    rng = np.random.default_rng(3)
+    turnstile = batch.replace(weight=torch.as_tensor(
+        rng.integers(-2, 4, b).astype(np.int32), device="cuda"))
+    heavy = batch.replace(weight=torch.as_tensor(
+        rng.integers(1, 1 << 22, b).astype(np.int32), device="cuda"))
+    edge_rows = [labelled(_bench_ingest_edges(smoke, *args), args[2])
+                 for args in ((sk, batch, "kmatrix batch 0"),
+                              (sk, batch, "kmatrix batch 0 capacity 128", 128),
+                              (sk, turnstile, "kmatrix turnstile batch"),
+                              (sk, heavy, "kmatrix cells above 2^24"),
+                              (gm, batch, "gmatrix P=1 batch 0"),
+                              (gm, turnstile, "gmatrix P=1 turnstile batch"),
+                              (gm, heavy, "gmatrix P=1 cells above 2^24"))]
+    smoke.check(edge_rows[1]["overflow"] > 0 and edge_rows[0]["overflow"] == 0,
+                "the forced capacity's tally is nonzero, the default's zero")
+
+    # matrix_ingest (rectangles): those the TPU's dispatch builds from the
+    # kMatrix batch 0, and the gMatrix batch's node_cells at P = 1
+    rects = ops.dispatch_rectangles(sk, batch, kma.dispatch_capacity(sk, b)).rects
+    smoke.check(all(r is not None for r in rects),
+                "one rectangle set per class (every class holds a partition)")
+    kmat = [labelled(_bench_ingest(smoke, torch.zeros_like(pool), *r,
+                                   f"kmatrix class {i}"), f"kmatrix class {i}")
+            for i, (pool, r) in enumerate(zip(sk.pools, rects))]
+    d = gm.depth
+    cells = [ms.node_cells(gm, x).view(d, 1, b) for x in (batch.src, batch.dst)]
+    smoke.check(tuple(gm.table.shape) == (7, 136, 136), "gmatrix table [7, 136, 136]")
+    p1 = labelled(_bench_ingest(smoke, torch.zeros_like(gm.table).unsqueeze(1),
+                                *cells, batch.weight.view(1, b), "gmatrix P=1"),
+                  "gmatrix P=1")
     d, p, w, c = 7, 64, 128, 8192
     wt = torch.zeros((p, c), dtype=torch.int32, device="cuda")
     wt[:, : c // p] = 1  # one batch of 8192 edges over 64 partitions
@@ -964,14 +1243,21 @@ def phase_kernels(smoke, sl, cmp, reach, fm):
         _random_ints(torch, gen, w, (d, p, c)),
         _random_ints(torch, gen, w, (d, p, c)), wt, "wide"), "wide")
 
-    # matrix_lookup: gMatrix's evaluation queries, then a wide shape
-    qs, qd, _ = sample_stream(stream, 10_000, seed=99)
-    calls = _capture_calls(torch, ms, "matrix_lookup", lambda: ms.edge_freq(
-        gm, torch.as_tensor(qs, device="cuda"), torch.as_tensor(qd, device="cuda")))
-    smoke.check(len(calls) == 1 and tuple(calls[0][1].shape) == (7, 1, 10_000),
-                "gmatrix edge_freq: one launch, hi [7, 1, 10000]")
-    look = [labelled(_bench_lookup(smoke, *calls[0], "gmatrix queries"),
-                     "gmatrix queries")]
+    # matrix_lookup_edges: gMatrix's evaluation queries, then a wide table
+    qs, qd = (torch.as_tensor(x, device="cuda")
+              for x in sample_stream(stream, 10_000, seed=99)[:2])
+    look_edges = [labelled(_bench_lookup_edges(
+        smoke, gm.table, gm.hashes.a, gm.hashes.b, qs, qd, "gmatrix queries"),
+        "gmatrix queries")]
+    look_edges.append(labelled(_bench_lookup_edges(
+        smoke, _random_ints(torch, gen, 1 << 20, (7, 2048, 2048)), gm.hashes.a,
+        gm.hashes.b, _random_ints(torch, gen, 1 << 30, (1_000_000,)),
+        _random_ints(torch, gen, 1 << 30, (1_000_000,)), "wide"), "wide"))
+
+    # matrix_lookup (given cells): the same queries' node_cells, a wide shape
+    cells = [ms.node_cells(gm, x).view(gm.depth, 1, -1) for x in (qs, qd)]
+    look = [labelled(_bench_lookup(smoke, gm.table.unsqueeze(1), *cells,
+                                   "gmatrix queries"), "gmatrix queries")]
     pool = _random_ints(torch, gen, 1 << 20, (d, p, w, w))
     look.append(labelled(_bench_lookup(
         smoke, pool, _random_ints(torch, gen, w, (d, p, c)),
@@ -1034,10 +1320,20 @@ def phase_kernels(smoke, sl, cmp, reach, fm):
                  "src/repro/kernels/matrix_ingest.py:56",
                  {k: v["matrix_ingest"] for k, v in by_path.items()},
                  batch_sum, kmat + [p1, wide]),
+        _summary("matrix_ingest_edges",
+                 "src/repro_torch/kernels/csrc/matrix_ingest.cu",
+                 "src/repro/kernels/matrix_ingest.py:56",
+                 {k: v["matrix_ingest_edges"] for k, v in by_path.items()},
+                 edge_rows[0], edge_rows),
         _summary("matrix_lookup", "src/repro_torch/kernels/csrc/matrix_lookup.cu",
                  "src/repro/kernels/matrix_lookup.py:43",
                  {k: v["matrix_lookup"] for k, v in by_path.items()},
                  look[0], look),
+        _summary("matrix_lookup_edges",
+                 "src/repro_torch/kernels/csrc/matrix_lookup.cu",
+                 "src/repro/kernels/matrix_lookup.py:43",
+                 {k: v["matrix_lookup_edges"] for k, v in by_path.items()},
+                 look_edges[0], look_edges),
         _summary("reach_step", "src/repro_torch/kernels/csrc/reach_closure.cu",
                  "src/repro/kernels/reach_closure.py:39",
                  {**{f"{k} reachability": v["reach_step"]

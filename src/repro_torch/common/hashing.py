@@ -73,16 +73,25 @@ class HashFamily:
         Returns:
           int64 tensor of shape ``(d, *S)`` holding uint32 values.
         """
-        x = _as_u32(x)
-        shape = (-1,) + (1,) * x.ndim
-        h = (_mul32(self.a.view(shape), x[None]) + self.b.view(shape)) & _MASK32
-        h = h ^ (h >> 16)
-        h = _mul32(h, _XS_MUL)
-        return h ^ (h >> 15)
+        return mix(self.a, self.b, x)
 
     def hash_into(self, x: torch.Tensor, w) -> torch.Tensor:
         """Hash ``x`` into ``[0, w)`` under every function -> int32[d, *S]."""
         return fastrange(self.mix(x), w)
+
+
+def mix(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``HashFamily.mix`` on the parameters ``a``, ``b`` (int64[d] holding
+    uint32 values): the uint32 hash ``h = a*x + b; h ^= h >> 16;
+    h *= 0x7FEB352D; h ^= h >> 15`` of ``x`` (any shape S) under every
+    function -> int64[d, *S].  ``csrc/sketch_addr.cuh`` computes the same
+    in native uint32."""
+    x = _as_u32(x)
+    shape = (-1,) + (1,) * x.ndim
+    h = (_mul32(a.view(shape), x[None]) + b.view(shape)) & _MASK32
+    h = h ^ (h >> 16)
+    h = _mul32(h, _XS_MUL)
+    return h ^ (h >> 15)
 
 
 def families_match(a: HashFamily, b: HashFamily) -> bool:

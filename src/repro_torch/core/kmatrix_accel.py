@@ -1,13 +1,14 @@
 """kMatrix width-class layout — the sketch whose ingest runs the
-hand-written ``matrix_ingest`` kernel.
+hand-written ``matrix_ingest_edges`` kernel.
 
 ``KMatrixAccel`` stores the same counters as the flat-pool ``KMatrix``
 (``repro_torch.core.kmatrix``) in a different arrangement: partition widths
 are quantized down to power-of-two *width classes*, and every partition of
 width ``w_c`` lives as one row of a rectangular pool int32[d, P_c, w_c, w_c].
-Ingest buckets each batch into per-class ``(P_c, capacity)`` rectangles and
-launches the kernel once per non-empty class
-(``repro_torch.kernels.ops.kmatrix_accel_ingest``).
+Ingest is one kernel launch per batch that routes, hashes and adds each
+edge (``repro_torch.kernels.ops.kmatrix_accel_ingest``); the JAX package's
+per-class ``(P_c, capacity)`` rectangles survive as
+``kernels.ops.rectangle_ingest``, on no path.
 
 Layout equivalence: cell ``(hi, hj)`` of partition ``p`` is
 ``pools[class(p)][d, index(p), hi, hj]`` here and
@@ -49,9 +50,10 @@ class KMatrixAccel:
     ``pools[c]`` holds every partition of width ``class_widths[c]`` as one
     rectangular tensor int32[d, P_c, w_c, w_c].  ``part_class``/``part_index``
     map a global partition id to (class, row-within-class).  ``overflow``
-    counts ingest updates that exceeded the per-partition dispatch capacity
-    and took the exact scatter fallback — a diagnostic, never a correctness
-    term: the fallback counts those edges exactly.
+    counts ingest updates beyond the per-partition dispatch capacity (those
+    that take the exact scatter fallback of the JAX package's rectangle
+    dispatch) — a diagnostic, never a correctness term: every edge is
+    counted exactly either way.
     """
 
     pools: tuple  # tuple[int32[d, P_c, w_c, w_c], ...]
@@ -205,8 +207,8 @@ def _class_structure(widths: np.ndarray):
 
 def ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
            capacity: int | None = None, block_b: int = 128) -> KMatrixAccel:
-    """Exact batched ingest through the per-class ``matrix_ingest`` kernel,
-    in place; returns ``sk``.  See ``kernels.ops.kmatrix_accel_ingest``."""
+    """Exact batched ingest through one ``matrix_ingest_edges`` launch, in
+    place; returns ``sk``.  See ``kernels.ops.kmatrix_accel_ingest``."""
     from repro_torch.kernels.ops import kmatrix_accel_ingest
 
     return kmatrix_accel_ingest(sk, batch, capacity=capacity, block_b=block_b)

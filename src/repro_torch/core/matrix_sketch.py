@@ -6,11 +6,12 @@ arbitrary hash functions; gMatrix requires pairwise independent ones, which
 is what ``HashFamily`` provides, so the two differ only in their ``kind``
 label and build identical tables from the same seed (as in the JAX package).
 
-Ingest and edge-frequency queries run the hand-written kernels at P = 1 on
-the table viewed as ``[d, 1, w, w]``: ``matrix_ingest`` adds a batch into
-``sk.table`` in place (the JAX package returns a new array) and
-``matrix_lookup`` answers point queries.  On a CPU table both take their
-plain versions.  ``empty_like`` and ``merge`` return fresh storage.
+Ingest and edge-frequency queries are one launch each of the hand-written
+kernels, which hash the raw edges themselves: ``matrix_ingest_edges`` adds
+a batch into ``sk.table`` (viewed as ``[d, 1, w, w]``) in place (the JAX
+package returns a new array) and ``matrix_lookup_edges`` answers point
+queries.  On a CPU table both take their plain versions.  ``empty_like``
+and ``merge`` return fresh storage.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ from repro_torch.common.hashing import HashFamily, families_match, fastrange
 from repro_torch.common.struct import static_field, tensor_dataclass
 from repro_torch.core.kmatrix import layer_rows
 from repro_torch.core.types import EdgeBatch
-from repro_torch.kernels.matrix_ingest import matrix_ingest
-from repro_torch.kernels.matrix_lookup import matrix_lookup
+from repro_torch.kernels.matrix_ingest import matrix_ingest_edges
+from repro_torch.kernels.matrix_lookup import matrix_lookup_edges
 
 
 @tensor_dataclass
@@ -58,26 +59,26 @@ def node_cells(sk: MatrixSketch, v: torch.Tensor) -> torch.Tensor:
 
 
 def ingest(sk: MatrixSketch, batch: EdgeBatch) -> MatrixSketch:
-    """Add ``batch`` into ``sk.table`` in place (one ``matrix_ingest``
+    """Add ``batch`` into ``sk.table`` in place (one ``matrix_ingest_edges``
     launch on a CUDA table); returns ``sk``.  Every nonzero weight counts,
     negative (turnstile) ones too, as in the JAX package."""
-    b = batch.size
-    hi = node_cells(sk, batch.src).view(sk.depth, 1, b)
-    hj = node_cells(sk, batch.dst).view(sk.depth, 1, b)
-    matrix_ingest(sk.table.unsqueeze(1), hi, hj,
-                  batch.weight.to(torch.int32).view(1, b))
+    matrix_ingest_edges((sk.table.unsqueeze(1),), sk.hashes.a, sk.hashes.b,
+                        *(_int32(x) for x in (batch.src, batch.dst, batch.weight)))
     return sk
 
 
 def edge_freq(sk: MatrixSketch, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Point queries (one ``matrix_lookup`` launch on a CUDA table);
+    """Point queries (one ``matrix_lookup_edges`` launch on a CUDA table);
     shape-preserving."""
-    n = src.numel()
-    hi = node_cells(sk, src.reshape(-1)).view(sk.depth, 1, n)
-    hj = node_cells(sk, dst.reshape(-1)).view(sk.depth, 1, n)
-    # fastrange into w: in [0, w), the kernel's precondition
-    est = matrix_lookup(sk.table.unsqueeze(1), hi, hj)
+    est = matrix_lookup_edges(sk.table, sk.hashes.a, sk.hashes.b, _int32(src),
+                              _int32(dst))
     return est.view(src.shape)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """Flat contiguous int32: the same uint32 under the hashes as ``x``
+    (the low 32 bits, two's complement)."""
+    return x.reshape(-1).to(torch.int32).contiguous()
 
 
 def node_out_freq(sk: MatrixSketch, v: torch.Tensor) -> torch.Tensor:

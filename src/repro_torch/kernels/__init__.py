@@ -1,8 +1,13 @@
 """Hand-written CUDA kernels for Hopper, one per TPU kernel of the path.
 
-  matrix_ingest  — int32 atomic scatter-add sketch ingest (csrc/matrix_ingest.cu)
-  matrix_lookup  — gather + min over layers, sketch point queries
-                   (csrc/matrix_lookup.cu)
+  matrix_ingest  — int32 atomic scatter-add sketch ingest on the TPU's
+                   rectangles (csrc/matrix_ingest.cu)
+  matrix_ingest_edges — the whole batch ingest from the raw edges: routing,
+                   hashing and the scatter-add in one launch (same file)
+  matrix_lookup  — gather + min over layers, sketch point queries on given
+                   cells (csrc/matrix_lookup.cu)
+  matrix_lookup_edges — the same from the raw query endpoints, hashed in
+                   the kernel (same file)
   reach_step     — one boolean squaring on tensor cores, every layer
                    (csrc/reach_closure.cu)
   reach_closure  — the whole boolean closure of every layer in one launch,
@@ -13,11 +18,22 @@
 Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``).  A CUDA tensor launches the kernel;
 a CPU tensor takes the plain version.  ``build`` compiles the sources with
-``nvcc`` at first use.
+``nvcc`` at first use; ``csrc/sketch_addr.cuh`` holds the hashing and
+routing that the two edge kernels share.
 """
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
-from repro_torch.kernels.matrix_ingest import matrix_ingest, matrix_ingest_plain
-from repro_torch.kernels.matrix_lookup import matrix_lookup, matrix_lookup_plain
+from repro_torch.kernels.matrix_ingest import (
+    matrix_ingest,
+    matrix_ingest_edges,
+    matrix_ingest_edges_plain,
+    matrix_ingest_plain,
+)
+from repro_torch.kernels.matrix_lookup import (
+    matrix_lookup,
+    matrix_lookup_edges,
+    matrix_lookup_edges_plain,
+    matrix_lookup_plain,
+)
 from repro_torch.kernels.reach_closure import (
     reach_closure,
     reach_closure_plain,
@@ -26,6 +42,8 @@ from repro_torch.kernels.reach_closure import (
 )
 
 __all__ = ["embedding_bag", "embedding_bag_plain", "matrix_ingest",
-           "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_plain",
+           "matrix_ingest_edges", "matrix_ingest_edges_plain",
+           "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_edges",
+           "matrix_lookup_edges_plain", "matrix_lookup_plain",
            "reach_closure", "reach_closure_plain", "reach_step",
            "reach_step_plain"]

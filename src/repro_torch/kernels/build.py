@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``.  Libraries are built from the package's sources at first use
-into ``build/`` beside this file, named by a hash of the source and the
-command, so an edited source is rebuilt and never loaded stale.
+into ``build/`` beside this file, named by a hash of the source, the
+headers and the command, so an edited source or header is rebuilt and never
+loaded stale.
 ``build_all`` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
@@ -39,9 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """The library of kernel ``name``, named by a hash of its source, every
+    header in ``csrc/`` (a source may include any of them) and the flags."""
+    digest = hashlib.sha1()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, dict]:

@@ -1,15 +1,20 @@
-"""Batched sketch point queries: the hand-written CUDA kernel, its wrapper
-and its plain version.
+"""Batched sketch point queries: the hand-written CUDA kernels, their
+wrappers and their plain versions.  Two entry points:
 
-    out[p, c] = min_r pool[r, p, hi[r,p,c], hj[r,p,c]]
+    matrix_lookup(pool, hi, hj)            out[p, c] = min_r pool[r, p, hi[r,p,c], hj[r,p,c]]
+    matrix_lookup_edges(table, a, b, src, dst)
+        out[q] = min_r table[r, fastrange(mix_r(src[q]), w), fastrange(mix_r(dst[q]), w)]
 
-pool int32[d, P, w, w], hi/hj int32[d, P, C] -> int32[P, C], for any C
-(the JAX package pads C to its block and slices; here the kernel masks the
-ragged edge).
+``matrix_lookup``: pool int32[d, P, w, w], hi/hj int32[d, P, C] ->
+int32[P, C], for any C (the JAX package pads C to its block and slices;
+here the kernel masks the ragged edge); the Pallas function's counterpart.
+``matrix_lookup_edges``: table int32[d, w, w], the hash parameters a/b
+int64[d], src/dst int32[n] -> int32[n]; the whole TCM / gMatrix query
+(``accel_matrix_edge_freq``), hashing included, in one launch.
 
-The kernel (``csrc/matrix_lookup.cu``) replaces the Pallas one-hot product
+The kernels (``csrc/matrix_lookup.cu``) replace the Pallas one-hot product
 ``repro/kernels/matrix_lookup.py:matrix_lookup`` with a gather and an int32
-running min over the layers; see the source for its design.
+running min over the layers; see the source for their design.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch.common.hashing import fastrange, mix
 from repro_torch.kernels import build
 
 
@@ -98,3 +104,75 @@ def matrix_lookup(pool: torch.Tensor, hi: torch.Tensor,
 
 
 matrix_lookup.launches = 0
+
+
+def _check_edges(table, a, b, src, dst) -> None:
+    if table.dim() != 3 or table.shape[1] != table.shape[2] or table.shape[0] < 1:
+        raise ValueError(f"table must be [d >= 1, w, w], got {tuple(table.shape)}")
+    d = table.shape[0]
+    if a.shape != (d,) or b.shape != (d,):
+        raise ValueError(f"a, b must be [{d}], got {tuple(a.shape)} / "
+                         f"{tuple(b.shape)}")
+    if src.dim() != 1 or dst.shape != src.shape:
+        raise ValueError(f"src, dst must be [n], got {tuple(src.shape)} / "
+                         f"{tuple(dst.shape)}")
+    if src.shape[0] >= 2**31:
+        raise ValueError(f"n = {src.shape[0]} must be below 2^31")
+    for name, t, dtype in (("table", table, torch.int32), ("a", a, torch.int64),
+                           ("b", b, torch.int64), ("src", src, torch.int32),
+                           ("dst", dst, torch.int32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != table.device:
+            raise ValueError(f"{name} is on {t.device}, table on {table.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def matrix_lookup_edges_plain(table: torch.Tensor, a: torch.Tensor,
+                              b: torch.Tensor, src: torch.Tensor,
+                              dst: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``mix``, ``fastrange``, a gather, ``amin``."""
+    d, w, _ = table.shape
+    rows = torch.arange(d, device=table.device)[:, None]
+    hi = fastrange(mix(a, b, src), w).long()
+    hj = fastrange(mix(a, b, dst), w).long()
+    return torch.amin(table[rows, hi, hj], 0)
+
+
+@functools.cache
+def _edges_launcher():
+    lib = build.load("matrix_lookup")
+    fn = lib.matrix_lookup_edges_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    return lib, fn
+
+
+def matrix_lookup_edges(table: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                        src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Point queries of the edges ``(src[q], dst[q])`` -> a new int32[n].
+
+    A CUDA table launches the kernel, which hashes each endpoint itself;
+    a CPU table takes the plain version.  Any query ids: the cells are
+    hashed into ``[0, w)``, so there is no range precondition.
+    """
+    _check_edges(table, a, b, src, dst)
+    if table.device.type == "cpu":
+        return matrix_lookup_edges_plain(table, a, b, src, dst)
+    if table.device.type != "cuda":
+        raise ValueError(f"matrix_lookup_edges runs on cuda or cpu, not "
+                         f"{table.device}")
+    d, w, _ = table.shape
+    n = src.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=table.device)
+    lib, fn = _edges_launcher()
+    with build.on_device(table.device) as stream:
+        code = fn(table.data_ptr(), a.data_ptr(), b.data_ptr(), src.data_ptr(),
+                  dst.data_ptr(), out.data_ptr(), d, w, n, stream)
+    build.check(lib, "matrix_lookup", code)
+    matrix_lookup_edges.launches += 1
+    return out
+
+
+matrix_lookup_edges.launches = 0

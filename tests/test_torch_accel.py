@@ -94,8 +94,8 @@ def test_stream_ingest_equals_reference_flat_twin(capacity):
         twin = jkm.ingest(twin, JBatch.from_numpy(src, dst, w))
         batch = EdgeBatch.from_numpy(src, dst, w, device="cpu")
         cap = capacity or tkma.dispatch_capacity(port, batch.size)
-        _, rank, in_cap = tops._dispatch(port, batch, -(-cap // 128) * 128)
-        over += int(((~in_cap) & (batch.weight > 0)).sum())
+        over += int(tops.dispatch_rectangles(
+            port, batch, -(-cap // 128) * 128).over.sum())
         port = tkma.ingest(port, batch, capacity=capacity)
     assert int(port.overflow) == over
     assert (over > 0) == (capacity is not None)

@@ -10,13 +10,20 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.common.hashing import HashFamily
 from repro_torch.configs import registry
+from repro_torch.core import EdgeBatch, KMatrixAccel, vertex_stats_from_sample
+from repro_torch.core import kmatrix_accel as tkma
 from repro_torch.kernels import (
     embedding_bag,
     embedding_bag_plain,
     matrix_ingest,
+    matrix_ingest_edges,
+    matrix_ingest_edges_plain,
     matrix_ingest_plain,
     matrix_lookup,
+    matrix_lookup_edges,
+    matrix_lookup_edges_plain,
     matrix_lookup_plain,
     ops,
     reach_closure,
@@ -28,11 +35,13 @@ from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
 from repro_torch.core import queries as tq
 from repro_torch.launch import stream_ingest
 from repro_torch.models.recsys import fm as tfm
+from repro_torch.streams import make_stream
 
 pytestmark = pytest.mark.cuda
 
-# the module, which the package shadows with its wrapper of the same name
+# the modules, which the package shadows with its wrappers of the same name
 eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+mi = importlib.import_module("repro_torch.kernels.matrix_ingest")
 
 
 @pytest.fixture
@@ -179,11 +188,15 @@ def test_stream_ingest_on_card_equals_cpu(card, sketch):
     flags = ["--scale", "0.03", "--budget-kb", "64", "--depth", "3",
              "--eval-queries", "500", "--sketch", sketch]
     parser = stream_ingest.build_parser()
-    before = (matrix_ingest.launches, matrix_lookup.launches)
+    counters = (matrix_ingest_edges, matrix_lookup_edges, matrix_ingest,
+                matrix_lookup)
+    before = [fn.launches for fn in counters]
     gpu = stream_ingest.inline_main(parser.parse_args([*flags, "--device", "cuda"]))
-    if sketch == "gmatrix":  # one ingest launch per batch, one lookup
-        assert (matrix_ingest.launches - before[0],
-                matrix_lookup.launches - before[1]) == (gpu["batches"], 1)
+    # one edge-ingest launch per batch; one edge-lookup launch for the
+    # gMatrix queries (kMatrix queries are gathers); no rectangle launch
+    lookups = 1 if sketch == "gmatrix" else 0
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [
+        gpu["batches"], lookups, 0, 0]
     cpu = stream_ingest.inline_main(parser.parse_args([*flags, "--device", "cpu"]))
     gl, gs = interop.export_state(gpu["sketch"])
     cl, cs = interop.export_state(cpu["sketch"])
@@ -308,3 +321,177 @@ def test_fm_cells_on_card_equal_cpu(card, shape):
     ref = cell.step_fn(cpu, *(x.cpu() for x in cell.inputs))
     # bags bit-equal; the k-sum, the tail and the GEMV run in another order
     torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the raw-edge entry points
+
+def _routed_sketch(depth: int, card, case: str = "default"):
+    """A width-class kMatrix on the CPU and its copy on the card: the banded
+    plan of the cit-HepPh stream's first batch (three width classes, one
+    of a single partition; conn_w not a power of two)."""
+    stream = make_stream("cit-HepPh", batch_size=2048, scale=0.03)
+    src, dst, w = stream.batch_numpy(0)
+    budget = {1: 1 << 16, 3: 1 << 16, 7: 1 << 17}[depth]
+    sk = KMatrixAccel.create(bytes_budget=budget,
+                             stats=vertex_stats_from_sample(src, dst, w),
+                             depth=depth, seed=depth, partitioner="banded",
+                             device="cpu")
+    if case == "empty_route":
+        none = torch.zeros(0, dtype=torch.int32)
+        sk = sk.replace(route=sk.route.replace(keys=none, part=none))
+    if case == "negative_ids":
+        sk = sk.replace(route=sk.route.replace(keys=sk.route.keys - 600))
+    rng = np.random.default_rng(depth)
+    if case == "turnstile":
+        w = rng.integers(-2, 4, w.shape).astype(np.int32)
+    if case == "negative_ids":
+        src, dst = src - 600, dst - 600
+        src[::7] = rng.integers(-2**31, 0, src[::7].shape).astype(np.int32)
+    if case == "above_2_24":
+        w = rng.integers(1, 1 << 22, w.shape).astype(np.int32)
+    batch = EdgeBatch.from_numpy(src, dst, w, device="cpu")
+    on_card = interop.import_state(*interop.export_state(sk), device=card)
+    return sk, on_card, batch
+
+
+def _ingest_args(sk, batch, capacity):
+    return ((sk.pools, sk.hashes.a, sk.hashes.b, batch.src, batch.dst,
+             batch.weight),
+            dict(route=sk.route, part_class=sk.part_class,
+                 part_index=sk.part_index, conn=sk.conn, overflow=sk.overflow,
+                 capacity=capacity))
+
+
+@pytest.mark.parametrize("layers_per_thread", [1, 2, 7])
+@pytest.mark.parametrize("case,depth", [
+    ("default", 1), ("default", 3), ("default", 7), ("overflow", 7),
+    ("turnstile", 3), ("empty_route", 3), ("negative_ids", 7),
+    ("above_2_24", 7)])
+def test_matrix_ingest_edges_kernel_equals_plain(card, monkeypatch, case,
+                                                 depth, layers_per_thread):
+    """The routed kernel == its plain version on the CPU: pools, conn and
+    the overflow tally; two runs bit-identical (atomics commute); one launch
+    per call, whatever the layers a thread takes."""
+    monkeypatch.setattr(mi, "LAYERS_PER_THREAD", layers_per_thread)
+    cpu, gpu, batch = _routed_sketch(depth, card, case)
+    capacity = 128 if case == "overflow" else 2048
+    args, kw = _ingest_args(cpu, batch, capacity)
+    matrix_ingest_edges_plain(*args, **kw)
+    runs = []
+    for _ in range(2):
+        sk = tkma.empty_like(gpu)
+        before = matrix_ingest_edges.launches
+        args, kw = _ingest_args(sk, batch.replace(
+            src=batch.src.to(card), dst=batch.dst.to(card),
+            weight=batch.weight.to(card)), capacity)
+        matrix_ingest_edges(*args, **kw)
+        assert matrix_ingest_edges.launches == before + 1
+        torch.cuda.synchronize()
+        runs.append(interop.export_state(sk)[0])
+    want = interop.export_state(cpu)[0]
+    for k in want:
+        np.testing.assert_array_equal(runs[0][k], want[k], err_msg=k)
+        np.testing.assert_array_equal(runs[1][k], runs[0][k], err_msg=k)
+    assert (int(cpu.overflow) > 0) == (case == "overflow")
+    if case == "above_2_24":
+        assert max(int(p.max()) for p in cpu.pools) > 1 << 24
+
+
+@pytest.mark.parametrize("layers_per_thread", [1, 7])
+@pytest.mark.parametrize("d,w,n", [(1, 8, 1), (3, 57, 1500), (7, 136, 8192),
+                                   (7, 136, 100_003), (2, 4096, 5000)])
+def test_matrix_ingest_edges_p1_kernel_equals_plain(card, monkeypatch, d, w, n,
+                                                    layers_per_thread):
+    """P = 1 (TCM / gMatrix): every nonzero weight, negative ones and
+    cells above 2^24 too, negative ids, w not a power of two."""
+    monkeypatch.setattr(mi, "LAYERS_PER_THREAD", layers_per_thread)
+    rng = np.random.default_rng(d * w + n)
+    fam = HashFamily.create(d, d, device=card)
+    ids = [torch.as_tensor(rng.integers(-50, 50, n).astype(np.int32), device=card)
+           for _ in range(2)]
+    wt = torch.as_tensor(rng.integers(-(1 << 22), 1 << 23, n).astype(np.int32),
+                         device=card)
+    tables = [torch.zeros((d, 1, w, w), dtype=torch.int32, device=card)
+              for _ in range(3)]
+    before = matrix_ingest_edges.launches
+    matrix_ingest_edges((tables[0],), fam.a, fam.b, *ids, wt)
+    matrix_ingest_edges((tables[1],), fam.a, fam.b, *ids, wt)
+    assert matrix_ingest_edges.launches == before + 2
+    matrix_ingest_edges_plain((tables[2],), fam.a, fam.b, *ids, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(tables[0], tables[2]) and torch.equal(tables[0], tables[1])
+
+
+# d = 8 and 11 take one and two chunks of the kernel's 8 layers
+@pytest.mark.parametrize("d,w,n", [(1, 8, 1), (7, 136, 10_000), (3, 57, 0),
+                                   (2, 1000, 100_003), (7, 4096, 4097),
+                                   (8, 64, 3000), (11, 64, 3000)])
+def test_matrix_lookup_edges_kernel_equals_plain(card, d, w, n):
+    rng = np.random.default_rng(d * w + n)
+    table = torch.as_tensor(
+        rng.integers(-2**31, 2**31 - 1, (d, w, w)).astype(np.int32), device=card)
+    fam = HashFamily.create(w, d, device=card)
+    src = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+                          device=card)
+    dst = torch.as_tensor(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+                          device=card)
+    before = matrix_lookup_edges.launches
+    out = matrix_lookup_edges(table, fam.a, fam.b, src, dst)
+    assert matrix_lookup_edges.launches == before + 1
+    expect = matrix_lookup_edges_plain(table, fam.a, fam.b, src, dst)
+    torch.cuda.synchronize()
+    assert out.shape == (n,) and out.dtype == torch.int32
+    assert torch.equal(out, expect)
+
+
+def test_edge_wrappers_check_inputs_on_card(card):
+    cpu, gpu, batch = _routed_sketch(3, card)
+    on_card = batch.replace(src=batch.src.to(card), dst=batch.dst.to(card),
+                            weight=batch.weight.to(card))
+    args, kw = _ingest_args(gpu, on_card, 128)
+    before = (matrix_ingest_edges.launches, matrix_lookup_edges.launches)
+    with pytest.raises(ValueError, match="src is on cpu"):
+        matrix_ingest_edges(*args[:3], batch.src, *args[4:], **kw)
+    with pytest.raises(TypeError, match="weight must be"):
+        matrix_ingest_edges(*args[:5], args[5].long(), **kw)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        matrix_ingest_edges(args[0], args[1], args[2], args[3][::2],
+                            args[4][::2], args[5][::2], **kw)
+    with pytest.raises(ValueError, match="1 to 16"):
+        matrix_ingest_edges([args[0][0]] * 17, *args[1:], **kw)
+    with pytest.raises(ValueError, match="needs part_class"):
+        matrix_ingest_edges(*args, **{**kw, "overflow": None})
+    table = gpu.conn
+    with pytest.raises(ValueError, match="src is on cpu"):
+        matrix_lookup_edges(table, gpu.hashes.a, gpu.hashes.b, batch.src,
+                            on_card.dst)
+    with pytest.raises(TypeError, match="a must be"):
+        matrix_lookup_edges(table, gpu.hashes.a.int(), gpu.hashes.b,
+                            on_card.src, on_card.dst)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        matrix_lookup_edges(table, gpu.hashes.a, gpu.hashes.b,
+                            on_card.src[::2], on_card.dst[::2])
+    assert (matrix_ingest_edges.launches, matrix_lookup_edges.launches) == before
+
+
+def test_kmatrix_ingest_is_one_launch_per_batch(card):
+    """kmatrix_accel_ingest and rectangle_ingest on the card: the same
+    sketch; the first one launch per batch and no rectangle launch."""
+    cpu, gpu, batch = _routed_sketch(7, card)
+    on_card = batch.replace(src=batch.src.to(card), dst=batch.dst.to(card),
+                            weight=batch.weight.to(card))
+    rect = tkma.empty_like(gpu)
+    before = (matrix_ingest_edges.launches, matrix_ingest.launches)
+    for capacity in (None, 128):
+        tkma.ingest(gpu, on_card, capacity=capacity)
+    assert (matrix_ingest_edges.launches - before[0],
+            matrix_ingest.launches - before[1]) == (2, 0)
+    for capacity in (None, 128):
+        ops.rectangle_ingest(rect, on_card, capacity=capacity)
+    assert matrix_ingest.launches - before[1] == 2 * len(gpu.class_counts)
+    torch.cuda.synchronize()
+    got, want = interop.export_state(gpu)[0], interop.export_state(rect)[0]
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(gpu.overflow) > 0

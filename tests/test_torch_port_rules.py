@@ -33,7 +33,9 @@ from repro_torch.kernels import (
     build,
     embedding_bag,
     matrix_ingest,
+    matrix_ingest_edges,
     matrix_lookup,
+    matrix_lookup_edges,
     reach_closure,
     reach_step,
 )
@@ -94,6 +96,7 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_card():
 def test_launch_counters_stay_zero_on_cpu_tensors():
     matrix_ingest.launches = matrix_lookup.launches = reach_step.launches = 0
     embedding_bag.launches = reach_closure.launches = 0
+    matrix_ingest_edges.launches = matrix_lookup_edges.launches = 0
     stream = make_stream("cit-HepPh", batch_size=1024, scale=0.01)
     s, d, w = stream.batch_numpy(0)
     sk = KMatrixAccel.create(bytes_budget=1 << 16,
@@ -110,6 +113,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     assert bool((est >= 1).all())
     assert tq.reachability(gm, torch.as_tensor(s), torch.as_tensor(d)).all()
     assert matrix_ingest.launches == matrix_lookup.launches == 0
+    assert matrix_ingest_edges.launches == matrix_lookup_edges.launches == 0
     assert reach_step.launches == reach_closure.launches == 0
     cfg = tfm.FMConfig(total_vocab=5_000, n_fields=7)
     fm = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
@@ -131,12 +135,19 @@ def test_wrappers_refuse_other_devices():
                                   device="meta"), 1)
     with pytest.raises(ValueError, match="cuda or cpu"):
         matrix_lookup(pool, hi, hi)
+    ab = torch.zeros(1, dtype=torch.int64, device="meta")
+    ids = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        matrix_ingest_edges((pool,), ab, ab, ids, ids, ids)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        matrix_lookup_edges(pool[:, 0], ab, ab, ids, ids)
     with pytest.raises(ValueError, match="cuda or cpu"):
         embedding_bag(torch.zeros((4, 10), device="meta"),
                       torch.zeros((2, 3), dtype=torch.int32, device="meta"))
     assert matrix_ingest.launches == 0 and reach_step.launches == 0
     assert matrix_lookup.launches == 0 and embedding_bag.launches == 0
     assert reach_closure.launches == 0
+    assert matrix_ingest_edges.launches == matrix_lookup_edges.launches == 0
 
 
 def _flag(flags, name):
@@ -179,3 +190,23 @@ def test_kernel_libraries_are_named_by_content_and_need_nvcc():
         pytest.skip("nvcc is installed here: the kernels can be built")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build_all()
+
+
+def test_library_path_follows_every_header(tmp_path, monkeypatch):
+    """A library is named by its source and every csrc header: editing
+    ``sketch_addr.cuh`` renames both libraries that include it, so a stale
+    build is never loaded."""
+    for kernel in ("matrix_ingest", "matrix_lookup"):
+        assert '#include "sketch_addr.cuh"' in (
+            build.CSRC / f"{kernel}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.KERNELS}
+    assert before == {name: build.library_path(name) for name in build.KERNELS}
+    header = csrc / "sketch_addr.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in build.KERNELS}
+    assert all(after[name] != before[name] for name in build.KERNELS)
+    (csrc / "new_helper.cuh").write_text("#pragma once\n")
+    assert build.library_path("matrix_ingest") != after["matrix_ingest"]
