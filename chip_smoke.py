@@ -59,6 +59,27 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      the top operations by device and host time, for the edge ingest and,
      in the same run, for the rectangle dispatch (rectangles, edges,
      edges, rectangles).
+  H. Online serving: the port's ``query_serve`` driver (cooperative mode)
+     on ``cuda`` at the JAX driver's defaults — the full cit-HepPh stream,
+     256 KB, depth 5, 8,000 requests offered open-loop at 2,000 QPS,
+     ``batch_max`` 512, a publish every 4 batches after 4 warm batches, the
+     default query mix — for a width-class kMatrix tenant and a gMatrix
+     tenant.  Launch counts are zeroed just before and read just after each
+     run: ``matrix_ingest_edges`` once per batch (52), ``reach_closure``
+     once per closure-cache miss, no ``reach_step``, ``matrix_lookup_edges``
+     for the gMatrix's edge, path and subgraph groups and never for the
+     kMatrix, no rectangle entry point.  Gates: the final front bit-equal to
+     one replay of the stream on the card and on the CPU plain path, its
+     edge count the stream's; the first 1,000 requests (every family)
+     answered by the engine on the final snapshot equal to the direct
+     answers on the card and to the CPU engine's on the CPU replay; a held
+     snapshot keeps its counters and its answers to 200 requests after 4
+     more batches are ingested and published, and shares no counter
+     storage with the new front.  Each run's summary line (achieved QPS,
+     p50/p90/p99, epochs, closure hits and misses), then a shorter run of
+     600 requests under ``torch.profiler``: the device's busy and idle
+     share over the load window and the top operations by device and host
+     time.
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
      P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
@@ -117,6 +138,15 @@ FM_RTOL, FM_ATOL = 1e-5, 1e-6
 COMPARED = {kind: ["--sketch", kind]
             for kind in ("countmin", "gsketch", "tcm", "gmatrix")}
 COMPARED["kmatrix-flat"] = ["--sketch", "kmatrix", "--sketch-backend", "flat"]
+# phase H: the JAX query_serve driver's defaults, on the card
+SERVE_FLAGS = ["--dataset", "cit-HepPh", "--scale", "1.0", "--budget-kb", "256",
+               "--depth", "5", "--qps", "2000", "--n-requests", "8000",
+               "--batch-max", "512", "--publish-every", "4",
+               "--warm-batches", "4", "--device", "cuda"]
+SERVE_KINDS = ("kmatrix", "gmatrix")
+SERVE_CHECKED = 1000  # requests whose answers are gated
+SERVE_HELD = 200  # requests asked again of a held snapshot
+SERVE_PROFILED = 600  # requests of the profiled run (0.3 s offered)
 
 
 def card_line() -> str:
@@ -729,6 +759,196 @@ def phase_fm(smoke, card):
     return {"launches": fm_launches, "bags": bags, "summary": summary}
 
 
+def _counter_tensors(sk) -> list:
+    """The counter tensors of a sketch (what ingest and merge write)."""
+    out = list(getattr(sk, "pools", ()))
+    return out + [getattr(sk, f) for f in ("pool", "conn", "overflow", "table")
+                  if hasattr(sk, f)]
+
+
+def _serve_run(smoke, kind):
+    """One tenant's query_serve run on the card, launch-counted and gated."""
+    torch = smoke.torch
+    from repro_torch import interop
+    from repro_torch.launch import query_serve
+    from repro_torch.obs import get_hub, reset_hub
+    from repro_torch.serving import QueryEngine, gates
+    from repro_torch.serving import engine as eng
+    from repro_torch.serving.snapshot import Snapshot
+
+    args = query_serve.parse_args([*SERVE_FLAGS, "--sketch", kind])
+    t0 = time.perf_counter()
+    reset_hub()  # the engine's per-family group counts and times
+    reset_launches()
+    run = query_serve._run(args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    run_s = time.perf_counter() - t0
+    by_family = {labels["family"]: {"groups": hs["count"], "ms": hs["sum"] * 1e3}
+                for name, labels, hs in get_hub().state()["hists"]
+                if name == "repro_engine_group_seconds"}
+    summary, tenant, stats = run["summary"], run["tenant"], run["engine"].stats
+    final, stream, mod = tenant.snapshot, tenant.stream, tenant.mod
+    print(f"  {kind}: achieved_qps={summary['achieved_qps']} offered="
+          f"{summary['offered_qps']} p50_ms={summary['p50_ms']} p90_ms="
+          f"{summary['p90_ms']} p99_ms={summary['p99_ms']} epochs="
+          f"{summary['final_epoch']} closure hits={stats['closure_hits']} "
+          f"misses={stats['closure_misses']} ({run_s:.1f}s run)")
+    sk = final.sketch
+    layout = ({"class_widths": sk.class_widths, "class_counts": sk.class_counts,
+               "conn_w": sk.conn_w} if hasattr(sk, "class_widths")
+              else {"table": list(sk.table.shape)})
+    print(f"  {kind}: {type(sk).__name__} {json.dumps(layout)}, "
+          f"{sk.num_counters} counters")
+    print(f"  {kind}: launches on the serving path: {launches}")
+    print(f"  {kind}: engine groups by family over the run, warm-up ladder "
+          f"included (host clock per group, read-back included): "
+          f"{json.dumps(dict(sorted(by_family.items())))}")
+    batches = stream.num_batches
+    smoke.check(batches == 52 and launches["matrix_ingest_edges"] == batches,
+                f"{kind}: matrix_ingest_edges launches == batches ({batches})")
+    smoke.check(launches["reach_closure"] == stats["closure_misses"] > 0,
+                f"{kind}: reach_closure launches == closure misses "
+                f"({stats['closure_misses']})")
+    smoke.check(launches["reach_step"] == 0, f"{kind}: no reach_step launch")
+    lookups = launches["matrix_lookup_edges"]
+    smoke.check(lookups >= 1 if kind == "gmatrix" else lookups == 0,
+                f"{kind}: matrix_lookup_edges launches {lookups} "
+                f"({'>= 1' if kind == 'gmatrix' else '0: gathers'})")
+    smoke.check(launches["matrix_ingest"] == launches["matrix_lookup"]
+                == launches["embedding_bag"] == 0,
+                f"{kind}: no rectangle entry point, no embedding_bag")
+    live = sum(int((stream.batch_numpy(i)[2] > 0).sum()) for i in range(batches))
+    smoke.check(summary["total_edges"] == final.n_edges == live == 421_578,
+                f"{kind}: total_edges {summary['total_edges']} == the "
+                f"stream's weight > 0 count ({live})")
+
+    # final state: one replay of the stream on the card and on the CPU
+    t1 = time.perf_counter()
+    reqs = run["requests"][:SERVE_CHECKED]
+    families = {r.family for r in reqs}
+    smoke.check(families == {r.family for r in run["requests"]}
+                and len(families) == 6,
+                f"{kind}: the first {SERVE_CHECKED} requests hold every "
+                f"family ({sorted(families)})")
+    card_replay = gates.replay_sketch(mod, mod.empty_like(final.sketch),
+                                      stream, batches)
+    cpu_template = interop.import_state(
+        *interop.export_state(mod.empty_like(final.sketch)), device="cpu")
+    cpu_replay = gates.replay_sketch(mod, cpu_template, stream, batches)
+    direct = eng.direct_answers(final, reqs)
+    for where, replay in (("card", card_replay), ("CPU", cpu_replay)):
+        verdict = gates.replay_exactness(final, replay, reqs, answers=direct)
+        smoke.check(verdict["ok"] and same_state(final.sketch, replay),
+                    f"{kind}: final front == one replay of the stream on the "
+                    f"{where} (counters and {len(reqs)} direct answers): "
+                    f"{verdict}")
+    # answers: the engine on the final snapshot
+    got = [r.value for r in QueryEngine().execute(final, reqs)]
+    cpu_snap = Snapshot(final.tenant_id + "/cpu", final.epoch, cpu_replay,
+                        final.kind, final.n_edges)
+    on_cpu = [r.value for r in QueryEngine().execute(cpu_snap, reqs)]
+    smoke.check(gates.mismatched_indices(got, direct) == []
+                and gates.mismatched_indices(got, on_cpu) == [],
+                f"{kind}: engine answers on the final snapshot == direct "
+                f"answers on the card == the CPU engine's on the CPU replay")
+
+    # the device time of one edge group (the min bucket, 64 point queries)
+    # of this layout: the kMatrix's are plain gathers, the gMatrix's one
+    # matrix_lookup_edges launch
+    pairs = [(r.src, r.dst) for r in run["requests"] if r.family == "edge_freq"]
+    qs, qd = (torch.as_tensor([p[i] for p in pairs[:64]], dtype=torch.int32,
+                              device=tenant.device) for i in (0, 1))
+    group_ms = device_ms(torch, lambda: mod.edge_freq(final.sketch, qs, qd))
+    n_groups = sum(by_family.get(f, {"groups": 0})["groups"]
+                   for f in ("edge_freq", "path_weight", "subgraph_weight"))
+    edge_groups = {"groups": n_groups, "device_ms_per_group": group_ms,
+                   "device_ms": None if group_ms is None else group_ms * n_groups}
+    print(f"  {kind}: edge, path and subgraph groups: {json.dumps(edge_groups)}")
+
+    # isolation: a held snapshot under 4 more batches and a publish
+    held = final
+    host = {k: v.copy() for k, v in interop.export_state(held.sketch)[0].items()}
+    ask = reqs[:SERVE_HELD]
+    before = [r.value for r in QueryEngine().execute(held, ask)]
+    for i in range(4):
+        tenant.buffer.ingest(stream.batch(i, device=tenant.device))
+    new = tenant.publish()
+    after = interop.export_state(held.sketch)[0]
+    again = [r.value for r in QueryEngine().execute(held, ask)]
+    smoke.check(new.epoch == held.epoch + 1
+                and new.n_edges == held.n_edges + 4 * stream.batch_size
+                and all((after[k] == host[k]).all() for k in host)
+                and gates.mismatched_indices(before, again) == [],
+                f"{kind}: held epoch {held.epoch} keeps its counters and its "
+                f"answers to {len(ask)} requests after 4 more batches and "
+                f"epoch {new.epoch}")
+    ptrs = {t.untyped_storage().data_ptr() for t in _counter_tensors(held.sketch)}
+    smoke.check(not ptrs & {t.untyped_storage().data_ptr()
+                            for t in _counter_tensors(new.sketch)},
+                f"{kind}: the new front shares no counter storage with the "
+                "held one")
+    print(f"  {kind}: gates {time.perf_counter() - t1:.1f}s")
+    return {"summary": summary, "launches": launches, "run_s": run_s,
+            "families": by_family, "edge_groups": edge_groups}
+
+
+def _serve_profile(smoke, kind):
+    """A shorter run of the same driver with ``torch.profiler`` over the
+    load window: the device's busy and idle share, the top operations."""
+    torch = smoke.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import query_serve
+
+    args = query_serve.parse_args([*SERVE_FLAGS, "--sketch", kind,
+                                   "--n-requests", str(SERVE_PROFILED)])
+    _, tenant = query_serve.open_tenant(args)
+    engine, requests = query_serve.warm_engine(args, tenant)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report, _ = query_serve.run_load(
+            args, engine, lambda: tenant.snapshot, requests,
+            between_batches=query_serve.live_ingest(args, tenant))
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy = sum(_self_device_us(e) for e in events) / 1e3
+    row = {"requests": report.n_requests, "batches": report.n_batches,
+           "ingested_batches": tenant.offset, "window_ms": window * 1e3,
+           "device_busy_ms": busy, "idle_share": 1 - busy / (window * 1e3),
+           "achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+           "p99_ms": report.p99_ms}
+    print(f"  {kind}, load window under the profiler: {json.dumps(row)}")
+    for e in sorted(events, key=_self_device_us, reverse=True)[:8]:
+        if _self_device_us(e) > 0:
+            print(f"    device {_self_device_us(e) / 1e3:9.3f} ms  "
+                  f"x{e.count:6d}  {e.key[:90]}")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:6d}  {e.key[:90]}")
+    smoke.check(busy > 0, f"{kind}: the profiled load window ran on the device")
+    return row
+
+
+def phase_serving(smoke, card):
+    """The online serving tier on the card: two tenants through the port's
+    query_serve driver, gated against replays, the CPU and a held snapshot."""
+    from repro_torch.launch import query_serve
+
+    t0 = time.perf_counter()
+    # warm-up on a small stream: first-call costs stay out of the timed runs
+    query_serve._run(query_serve.parse_args(
+        ["--scale", "0.03", "--n-requests", "200", "--device", "cuda"]))
+    out = {kind: _serve_run(smoke, kind) for kind in SERVE_KINDS}
+    for kind in SERVE_KINDS:
+        out[kind]["profile"] = _serve_profile(smoke, kind)
+    print(f"  {card}; phase H {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
     torch = smoke.torch
     from repro_torch.kernels import matrix_ingest, matrix_ingest_plain
@@ -1179,7 +1399,7 @@ def _summary(name, source, replaces, launches, main, rows):
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach, fm):
+def phase_kernels(smoke, sl, cmp, reach, fm, serve):
     torch = smoke.torch
     import numpy as np
 
@@ -1312,9 +1532,10 @@ def phase_kernels(smoke, sl, cmp, reach, fm):
     batch_sum = summed(kmat)
     # one serve_p99 forward: its three bags
     p99 = summed([r for k, r in bag_rows.items() if k.startswith("serve_p99")])
+    served = {f"serve {k}": v["launches"] for k, v in serve.items()}
     by_path = {"kmatrix": sl["launches"],
                **{k: v for k, v in cmp["launches"].items()},
-               "fm": fm["launches"]}
+               "fm": fm["launches"], **served}
     return [
         _summary("matrix_ingest", "src/repro_torch/kernels/csrc/matrix_ingest.cu",
                  "src/repro/kernels/matrix_ingest.py:56",
@@ -1338,14 +1559,16 @@ def phase_kernels(smoke, sl, cmp, reach, fm):
                  "src/repro/kernels/reach_closure.py:39",
                  {**{f"{k} reachability": v["reach_step"]
                      for k, v in reach["launches"].items()},
-                  "fm": fm["launches"]["reach_step"]},
+                  "fm": fm["launches"]["reach_step"],
+                  **{k: v["reach_step"] for k, v in served.items()}},
                  next(r for r in reach_rows if r["label"].startswith("gmatrix 2MB")),
                  reach_rows),
         _summary("reach_closure", "src/repro_torch/kernels/csrc/reach_closure.cu",
                  "src/repro/kernels/reach_closure.py:39",
                  {**{f"{k} reachability": v["reach_closure"]
                      for k, v in reach["launches"].items()},
-                  "fm": fm["launches"]["reach_closure"]},
+                  "fm": fm["launches"]["reach_closure"],
+                  **{k: v["reach_closure"] for k, v in served.items()}},
                  close_rows[0], close_rows),
         _summary("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
                  "src/repro/kernels/embedding_bag.py:38",
@@ -1384,9 +1607,12 @@ def main() -> int:
              if cmp else None)
     if reach is not None:
         smoke.phase("E. where the ingest time goes", phase_profile, smoke, sl)
+    serve = (smoke.phase("H. online serving", phase_serving, smoke, card)
+             if card else None)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
-                           cmp, reach, fm)
-               if reach is not None and fm is not None else None)
+                           cmp, reach, fm, serve)
+               if reach is not None and fm is not None and serve is not None
+               else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

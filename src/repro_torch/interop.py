@@ -14,6 +14,13 @@ dataclass fields, telling static fields by the metadata key both packages
 use), so a test can start both sides from one state and compare them leaf
 by leaf.  ``import_state`` builds the port's sketch on a device.
 
+``snapshot_state_from_jax`` carries a whole snapshot buffer across: a JAX
+``SnapshotBuffer.state()`` (front and delta sketches, the pending count, the
+epoch and the edge count) becomes the port's ``SnapshotBuffer.load_state``
+input; ``snapshot_state_to_jax`` gives the port's ``state()`` back in
+leaves, which the JAX package loads into sketch templates of its own (as
+its checkpoint store restores leaves keyed the same way).
+
 ``fm_params_from_jax`` does the same for the FM: the JAX package's params
 dict (``emb``, ``lin``, ``bias``) as numpy arrays becomes the port's ``FM``.
 """
@@ -117,6 +124,31 @@ def import_state(leaves: dict, static: dict, *, device="cuda"):
     if extra:
         raise ValueError(f"unexpected leaves for {kind}: {extra}")
     return sk
+
+
+def snapshot_state_from_jax(state: dict, *, device="cuda") -> dict:
+    """A snapshot buffer ``state()`` of the JAX package (its ``front`` and
+    ``delta`` sketches, ``pending``, ``epoch``, ``n_edges``) as the port's
+    ``SnapshotBuffer.load_state`` input, its sketches on ``device``."""
+    return {
+        "front": import_state(*export_state(state["front"]), device=device),
+        "delta": import_state(*export_state(state["delta"]), device=device),
+        "pending": int(np.asarray(state["pending"])),
+        "epoch": int(state["epoch"]),
+        "n_edges": int(state["n_edges"]),
+    }
+
+
+def snapshot_state_to_jax(state: dict) -> dict:
+    """The inverse, for the port's ``state()``: ``front`` and ``delta`` as
+    ``(leaves, static)`` (``export_state``), the counts as ints."""
+    return {
+        "front": export_state(state["front"]),
+        "delta": export_state(state["delta"]),
+        "pending": int(state["pending"]),
+        "epoch": int(state["epoch"]),
+        "n_edges": int(state["n_edges"]),
+    }
 
 
 def fm_params_from_jax(cfg: FMConfig, np_params: dict, *, device="cuda") -> FM:

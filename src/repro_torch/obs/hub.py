@@ -1,0 +1,486 @@
+"""Mergeable metrics hub: counters, gauges, log-bucketed histograms.
+
+A copy of the JAX package's ``obs/hub.py``, which imports neither JAX nor
+numpy: the port keeps its own so that it never imports ``repro``.  The
+bucket ladders, state dicts and merge rules are the same, so a hub state of
+either package folds into the other's.
+
+Every histogram uses a *fixed, named bucket ladder* shared by all
+producers, so per-worker histograms sum exactly — across threads (shared
+hub), process pipes (state dicts in metrics beats), and socket frames
+(same dicts through the wire codec).  No raw sample arrays cross any
+boundary; percentiles are answered from bucket counts plus exact
+min/max/sum side-channels.
+
+Topology (DESIGN.md §Observability):
+
+- each process owns one global hub (``get_hub()``); threads share it and
+  label their instruments (tenant/shard/backend/query-class)
+- remote workers ship ``hub.state()`` (a plain picklable dict) inside
+  their existing metrics/publish beats; the parent calls
+  ``hub.adopt(source, state)`` which *replaces* that source's previous
+  contribution — child states are cumulative, so replace-then-sum never
+  double-counts
+- ``merged_state()`` / ``render_prometheus()`` fold local + adopted
+  states: counters and histogram buckets add, gauges last-write-wins
+
+``set_disabled(True)`` turns every instrument mutation into an early
+return (the metrics-off arm of an overhead measurement).
+"""
+from __future__ import annotations
+
+import copy
+import threading
+from bisect import bisect_left
+from typing import Any, Callable
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsHub",
+    "get_hub", "reset_hub", "set_disabled", "metrics_disabled",
+    "LADDERS",
+]
+
+# ---------------------------------------------------------------- ladders
+# Named, immutable bucket ladders.  States reference ladders by name so a
+# merge between mismatched ladders is a hard error, never a silent skew.
+#   latency: 1us .. ~95s, x sqrt(2) per bucket (54 bounds)
+#   size:    1 .. 2^24, x2 per bucket (25 bounds)
+LADDERS: dict[str, tuple[float, ...]] = {
+    "latency": tuple(1e-6 * (2.0 ** (i / 2.0)) for i in range(54)),
+    "size": tuple(float(2 ** i) for i in range(25)),
+}
+
+_disabled = False
+
+
+def set_disabled(flag: bool) -> None:
+    """Globally disable (or re-enable) instrument mutation."""
+    global _disabled
+    _disabled = bool(flag)
+
+
+def metrics_disabled() -> bool:
+    return _disabled
+
+
+def _label_key(labels: dict[str, Any]) -> tuple:
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(labels: dict[str, str], extra: str = "") -> str:
+    parts = [f'{k}="{_escape(v)}"' for k, v in sorted(labels.items())]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def _fmt_val(v: float) -> str:
+    f = float(v)
+    if f == int(f) and abs(f) < 1e15:
+        return str(int(f))
+    return repr(f)
+
+
+# ------------------------------------------------------------ instruments
+class Counter:
+    """Monotonic cumulative count.  ``set`` exists for mirroring counts
+    that are maintained elsewhere (e.g. queue stats dicts)."""
+
+    __slots__ = ("name", "labels", "value", "_lock")
+
+    def __init__(self, name: str, labels: dict[str, str]):
+        self.name = name
+        self.labels = labels
+        self.value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        if _disabled:
+            return
+        with self._lock:
+            self.value += n
+
+    def set(self, v: float) -> None:
+        if _disabled:
+            return
+        self.value = float(v)
+
+
+class Gauge:
+    """Point-in-time value; merges last-write-wins."""
+
+    __slots__ = ("name", "labels", "value")
+
+    def __init__(self, name: str, labels: dict[str, str]):
+        self.name = name
+        self.labels = labels
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        if _disabled:
+            return
+        self.value = float(v)
+
+    def inc(self, n: float = 1.0) -> None:
+        if _disabled:
+            return
+        self.value += n
+
+
+class Histogram:
+    """Log-bucketed histogram over a named fixed ladder.
+
+    ``counts`` has ``len(bounds) + 1`` slots; slot i counts samples with
+    ``value <= bounds[i]`` (prometheus ``le`` semantics), the last slot
+    is the +Inf overflow.  Exact ``sum``/``count``/``min``/``max`` ride
+    along so means stay exact and quantiles clamp to observed extremes.
+    """
+
+    __slots__ = ("name", "labels", "ladder", "bounds", "counts",
+                 "sum", "count", "min", "max", "_lock")
+
+    def __init__(self, name: str, labels: dict[str, str],
+                 ladder: str = "latency"):
+        if ladder not in LADDERS:
+            raise ValueError(f"unknown ladder {ladder!r}")
+        self.name = name
+        self.labels = labels
+        self.ladder = ladder
+        self.bounds = LADDERS[ladder]
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+        self.min = float("inf")
+        self.max = float("-inf")
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        if _disabled:
+            return
+        v = float(value)
+        idx = bisect_left(self.bounds, v)
+        with self._lock:
+            self.counts[idx] += 1
+            self.sum += v
+            self.count += 1
+            if v < self.min:
+                self.min = v
+            if v > self.max:
+                self.max = v
+
+    def observe_many(self, values) -> None:
+        if _disabled:
+            return
+        for v in values:
+            self.observe(v)
+
+    def observe_n(self, value: float, n: int) -> None:
+        """Record ``n`` occurrences of ``value`` in one bucket update
+        (e.g. per-request weighting of a per-batch latency)."""
+        if _disabled or n <= 0:
+            return
+        v = float(value)
+        idx = bisect_left(self.bounds, v)
+        with self._lock:
+            self.counts[idx] += n
+            self.sum += v * n
+            self.count += n
+            if v < self.min:
+                self.min = v
+            if v > self.max:
+                self.max = v
+
+    # -- state / merge -------------------------------------------------
+    def state(self) -> dict[str, Any]:
+        with self._lock:
+            return {"ladder": self.ladder, "counts": list(self.counts),
+                    "sum": self.sum, "count": self.count,
+                    "min": self.min, "max": self.max}
+
+    def merge_state(self, st: dict[str, Any]) -> None:
+        if st["ladder"] != self.ladder:
+            raise ValueError(
+                f"histogram ladder mismatch: {st['ladder']!r} vs "
+                f"{self.ladder!r} for {self.name}")
+        with self._lock:
+            for i, c in enumerate(st["counts"]):
+                self.counts[i] += c
+            self.sum += st["sum"]
+            self.count += st["count"]
+            self.min = min(self.min, st["min"])
+            self.max = max(self.max, st["max"])
+
+    # -- reads ---------------------------------------------------------
+    def quantile(self, q: float) -> float:
+        """Quantile by linear interpolation within the owning bucket,
+        clamped to the exact observed [min, max]."""
+        return quantile_from_state(self.state(), q)
+
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+
+def merge_hist_states(a: dict[str, Any], b: dict[str, Any]) -> dict[str, Any]:
+    if a["ladder"] != b["ladder"]:
+        raise ValueError("histogram ladder mismatch")
+    return {"ladder": a["ladder"],
+            "counts": [x + y for x, y in zip(a["counts"], b["counts"])],
+            "sum": a["sum"] + b["sum"], "count": a["count"] + b["count"],
+            "min": min(a["min"], b["min"]), "max": max(a["max"], b["max"])}
+
+
+def quantile_from_state(st: dict[str, Any], q: float) -> float:
+    count = st["count"]
+    if not count:
+        return 0.0
+    bounds = LADDERS[st["ladder"]]
+    rank = max(0.0, min(1.0, q)) * count
+    seen = 0.0
+    for i, c in enumerate(st["counts"]):
+        if not c:
+            continue
+        if seen + c >= rank:
+            lo = bounds[i - 1] if i > 0 else 0.0
+            hi = bounds[i] if i < len(bounds) else st["max"]
+            frac = (rank - seen) / c
+            v = lo + (hi - lo) * max(0.0, min(1.0, frac))
+            return max(st["min"], min(st["max"], v))
+        seen += c
+    return st["max"]
+
+
+# ----------------------------------------------------------------- hub
+class MetricsHub:
+    """Registry of labeled instruments plus adoption of remote states."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: dict[tuple, Counter] = {}
+        self._gauges: dict[tuple, Gauge] = {}
+        self._hists: dict[tuple, Histogram] = {}
+        self._help: dict[str, str] = {}
+        self._adopted: dict[str, dict] = {}
+        self._collectors: list[Callable[[], None]] = []
+
+    # -- instrument factories (get-or-create; idempotent) --------------
+    def counter(self, name: str, help: str = "", **labels) -> Counter:
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._counters.get(key)
+            if inst is None:
+                inst = self._counters[key] = Counter(
+                    name, {k: str(v) for k, v in labels.items()})
+            if help:
+                self._help.setdefault(name, help)
+            return inst
+
+    def gauge(self, name: str, help: str = "", **labels) -> Gauge:
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._gauges.get(key)
+            if inst is None:
+                inst = self._gauges[key] = Gauge(
+                    name, {k: str(v) for k, v in labels.items()})
+            if help:
+                self._help.setdefault(name, help)
+            return inst
+
+    def histogram(self, name: str, help: str = "", ladder: str = "latency",
+                  **labels) -> Histogram:
+        key = (name, _label_key(labels))
+        with self._lock:
+            inst = self._hists.get(key)
+            if inst is None:
+                inst = self._hists[key] = Histogram(
+                    name, {k: str(v) for k, v in labels.items()}, ladder)
+            if help:
+                self._help.setdefault(name, help)
+            return inst
+
+    # -- collectors ----------------------------------------------------
+    def add_collector(self, fn: Callable[[], None]) -> None:
+        """Register a callback run before every state()/render — used to
+        refresh gauges and adopt remote states on demand."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def remove_collector(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            try:
+                self._collectors.remove(fn)
+            except ValueError:
+                pass
+
+    def _run_collectors(self) -> None:
+        with self._lock:
+            fns = list(self._collectors)
+        for fn in fns:
+            try:
+                fn()
+            except Exception:  # a broken collector must not kill a scrape
+                pass
+
+    # -- state / adoption ---------------------------------------------
+    def state(self) -> dict[str, Any]:
+        """This hub's local contribution as a plain picklable dict
+        (adopted sources NOT included — suitable for shipping upward)."""
+        self._run_collectors()
+        with self._lock:
+            return {
+                "counters": [[c.name, dict(c.labels), c.value]
+                             for c in self._counters.values()],
+                "gauges": [[g.name, dict(g.labels), g.value]
+                           for g in self._gauges.values()],
+                "hists": [[h.name, dict(h.labels), h.state()]
+                          for h in self._hists.values()],
+                "help": dict(self._help),
+            }
+
+    def adopt(self, source: str, state: dict[str, Any]) -> None:
+        """Replace ``source``'s contribution with its latest cumulative
+        state (children re-ship whole state each beat)."""
+        if not isinstance(state, dict):
+            return
+        with self._lock:
+            self._adopted[source] = state
+
+    def adopted_sources(self) -> list[str]:
+        with self._lock:
+            return sorted(self._adopted)
+
+    def merged_state(self) -> dict[str, Any]:
+        """Local + adopted, in sorted source order (deterministic sums:
+        the exact-equality tests rely on this order)."""
+        merged = copy.deepcopy(self.state())
+        with self._lock:
+            sources = [self._adopted[s] for s in sorted(self._adopted)]
+        for st in sources:
+            _fold_state(merged, st)
+        return merged
+
+    def render_prometheus(self, state: dict[str, Any] | None = None) -> str:
+        return render_prometheus(self.merged_state() if state is None
+                                 else state)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+            self._adopted.clear()
+            self._collectors.clear()
+            self._help.clear()
+
+
+def _fold_state(into: dict[str, Any], st: dict[str, Any]) -> None:
+    if not isinstance(st, dict):
+        return
+    cidx = {(row[0], _label_key(row[1])): row for row in into["counters"]}
+    for name, labels, value in st.get("counters", []):
+        row = cidx.get((name, _label_key(labels)))
+        if row is None:
+            into["counters"].append([name, dict(labels), value])
+        else:
+            row[2] += value
+    gidx = {(row[0], _label_key(row[1])): row for row in into["gauges"]}
+    for name, labels, value in st.get("gauges", []):
+        row = gidx.get((name, _label_key(labels)))
+        if row is None:
+            into["gauges"].append([name, dict(labels), value])
+        else:
+            row[2] = value
+    hidx = {(row[0], _label_key(row[1])): row for row in into["hists"]}
+    for name, labels, hstate in st.get("hists", []):
+        row = hidx.get((name, _label_key(labels)))
+        if row is None:
+            into["hists"].append([name, dict(labels),
+                                  copy.deepcopy(hstate)])
+        else:
+            row[2] = merge_hist_states(row[2], hstate)
+    for name, text in st.get("help", {}).items():
+        into["help"].setdefault(name, text)
+
+
+def render_prometheus(state: dict[str, Any]) -> str:
+    """Prometheus text exposition (v0.0.4) of a (merged) state dict."""
+    help_map = state.get("help", {})
+    out: list[str] = []
+    by_name: dict[str, list] = {}
+    for name, labels, value in state.get("counters", []):
+        by_name.setdefault(("counter", name), []).append((labels, value))
+    for name, labels, value in state.get("gauges", []):
+        by_name.setdefault(("gauge", name), []).append((labels, value))
+    for (kind, name), rows in sorted(by_name.items(), key=lambda kv: kv[0][1]):
+        if name in help_map:
+            out.append(f"# HELP {name} {help_map[name]}")
+        out.append(f"# TYPE {name} {kind}")
+        for labels, value in sorted(rows, key=lambda r: _fmt_labels(r[0])):
+            out.append(f"{name}{_fmt_labels(labels)} {_fmt_val(value)}")
+    hists: dict[str, list] = {}
+    for name, labels, hstate in state.get("hists", []):
+        hists.setdefault(name, []).append((labels, hstate))
+    for name in sorted(hists):
+        if name in help_map:
+            out.append(f"# HELP {name} {help_map[name]}")
+        out.append(f"# TYPE {name} histogram")
+        for labels, hs in sorted(hists[name],
+                                 key=lambda r: _fmt_labels(r[0])):
+            bounds = LADDERS[hs["ladder"]]
+            cum = 0
+            for i, c in enumerate(hs["counts"][:-1]):
+                cum += c
+                if not c and i and not hs["counts"][i - 1]:
+                    continue  # skip runs of empty buckets (keep edges)
+                le_attr = 'le="%s"' % repr(float(bounds[i]))
+                out.append(f"{name}_bucket"
+                           f"{_fmt_labels(labels, le_attr)} {cum}")
+            cum += hs["counts"][-1]
+            inf_attr = 'le="+Inf"'
+            out.append(f"{name}_bucket"
+                       f"{_fmt_labels(labels, inf_attr)} {cum}")
+            out.append(f"{name}_sum{_fmt_labels(labels)} "
+                       f"{repr(float(hs['sum']))}")
+            out.append(f"{name}_count{_fmt_labels(labels)} {hs['count']}")
+    return "\n".join(out) + "\n"
+
+
+def hist_summary(hs: dict[str, Any]) -> dict[str, float]:
+    """Compact summary of a histogram state (for JSON reports)."""
+    if not hs["count"]:
+        return {"count": 0}
+    return {
+        "count": int(hs["count"]),
+        "mean": hs["sum"] / hs["count"],
+        "min": hs["min"], "max": hs["max"],
+        "p50": quantile_from_state(hs, 0.50),
+        "p90": quantile_from_state(hs, 0.90),
+        "p99": quantile_from_state(hs, 0.99),
+        "p999": quantile_from_state(hs, 0.999),
+    }
+
+
+# ------------------------------------------------------------ global hub
+_GLOBAL: MetricsHub | None = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def get_hub() -> MetricsHub:
+    """The process-global hub.  Spawned children start with a fresh one;
+    their state reaches the parent via metrics/publish beats."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        if _GLOBAL is None:
+            _GLOBAL = MetricsHub()
+        return _GLOBAL
+
+
+def reset_hub() -> MetricsHub:
+    """Replace the global hub (test isolation)."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        _GLOBAL = MetricsHub()
+        return _GLOBAL

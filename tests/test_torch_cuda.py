@@ -33,8 +33,11 @@ from repro_torch.kernels import (
 )
 from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
 from repro_torch.core import queries as tq
-from repro_torch.launch import stream_ingest
+from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.models.recsys import fm as tfm
+from repro_torch.serving import QueryEngine, SketchRegistry, gates, synth_requests
+from repro_torch.serving import engine as eng
+from repro_torch.serving import mix_for_sketch
 from repro_torch.streams import make_stream
 
 pytestmark = pytest.mark.cuda
@@ -495,3 +498,103 @@ def test_kmatrix_ingest_is_one_launch_per_batch(card):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert int(gpu.overflow) > 0
+
+
+SERVING_KINDS = {"countmin": "width_class", "gsketch": "width_class",
+                 "tcm": "width_class", "gmatrix": "width_class",
+                 "kmatrix": "width_class", "kmatrix-flat": "flat"}
+
+
+def _serving_requests(kind, n_nodes):
+    reqs = synth_requests(300, mix_for_sketch(kind.split("-")[0]),
+                          n_nodes=n_nodes, seed=3,
+                          heavy_universe=min(n_nodes, 1 << 14))
+    if kind in ("tcm", "gmatrix"):
+        reqs += [eng.node_in(v) for v in range(0, n_nodes, 401)]
+    return reqs
+
+
+@pytest.mark.parametrize("kind", list(SERVING_KINDS))
+def test_serving_engine_on_card_equals_cpu(card, kind):
+    """A tenant on the card and on the CPU: the same counters after three
+    batches, the engine's answers on the card equal to its CPU answers and
+    to the direct answers on the card; launches: one edge ingest per batch
+    (the matrix kinds), one reach_closure per closure miss, one edge
+    lookup per TCM/gMatrix edge, path and subgraph group."""
+    name = kind.split("-")[0]
+    regs = {dev: SketchRegistry(depth=5, scale=0.1, device=dev,
+                                sketch_backend=SERVING_KINDS[kind])
+            for dev in ("cuda", "cpu")}
+    tenants = {dev: reg.open("cit-HepPh", name, 256) for dev, reg in regs.items()}
+    counters = (matrix_ingest_edges, matrix_lookup_edges, reach_closure,
+                reach_step, matrix_ingest, matrix_lookup)
+    before = [fn.launches for fn in counters]
+    snaps = {}
+    for dev, t in tenants.items():
+        t.step(3)
+        snaps[dev] = t.publish()
+    torch.cuda.synchronize()
+    assert gates.layout_counters_equal(snaps["cuda"].sketch, snaps["cpu"].sketch)
+    assert interop.export_state(snaps["cuda"].sketch)[1] == \
+        interop.export_state(snaps["cpu"].sketch)[1]
+    reqs = _serving_requests(kind, tenants["cpu"].stream.spec.n_nodes)
+    engine = QueryEngine()
+    mid = [fn.launches for fn in counters]
+    got = [r.value for r in engine.execute(snaps["cuda"], reqs)]
+    launched = [fn.launches - n for fn, n in zip(counters, mid)]
+    want = [r.value for r in QueryEngine().execute(snaps["cpu"], reqs)]
+    assert gates.mismatched_indices(got, want) == []
+    assert gates.mismatched_indices(
+        got, eng.direct_answers(snaps["cuda"], reqs)) == []
+    matrix = name in ("tcm", "gmatrix")
+    ingests = 3 if matrix or kind == "kmatrix" else 0
+    assert mid[0] - before[0] == ingests
+    edge_groups = len({engine._group_key(r) for r in reqs
+                       if r.family in ("edge_freq", "path_weight",
+                                       "subgraph_weight")})
+    assert launched == [0, edge_groups if matrix else 0,
+                        engine.closures.misses, 0, 0, 0]
+
+
+def test_published_front_on_card_is_never_written_again(card):
+    reg = SketchRegistry(depth=5, scale=0.1, device="cuda")
+    t = reg.open("cit-HepPh", "kmatrix", 256)
+    t.step(2)
+    held = t.publish()
+    host = {k: v.copy() for k, v in interop.export_state(held.sketch)[0].items()}
+    token = t.buffer.dispatch_token()
+    t.step(2)
+    fence = t.buffer.dispatch_token()
+    assert isinstance(fence, torch.cuda.Event) and fence is not token
+    fence.synchronize()
+    assert fence.query()
+    new = t.publish()
+    ptrs = {x.data_ptr() for x in (*held.sketch.pools, held.sketch.conn)}
+    assert not ptrs & {x.data_ptr() for x in (*new.sketch.pools, new.sketch.conn)}
+    after = interop.export_state(held.sketch)[0]
+    for k in host:
+        np.testing.assert_array_equal(after[k], host[k], err_msg=k)
+
+
+@pytest.mark.parametrize("sketch", ["kmatrix", "gmatrix"])
+def test_query_serve_on_card_equals_cpu(card, sketch, capsys):
+    flags = ["--scale", "0.05", "--n-requests", "400", "--sketch", sketch]
+    counters = (matrix_ingest_edges, matrix_lookup_edges, reach_closure,
+                reach_step)
+    before = [fn.launches for fn in counters]
+    gpu = query_serve._run(query_serve.parse_args([*flags, "--device", "cuda"]))
+    launched = [fn.launches - n for fn, n in zip(counters, before)]
+    cpu = query_serve._run(query_serve.parse_args([*flags, "--device", "cpu"]))
+    assert gates.layout_counters_equal(gpu["tenant"].snapshot.sketch,
+                                       cpu["tenant"].snapshot.sketch)
+    batches = gpu["tenant"].stream.num_batches
+    misses = gpu["summary"]["engine_closure_misses"]
+    assert launched[0] == batches and launched[2] == misses and launched[3] == 0
+    assert (launched[1] > 0) == (sketch == "gmatrix")
+    for key in ("total_edges", "n_requests", "sketch", "sketch_backend"):
+        assert gpu["summary"][key] == cpu["summary"][key]
+    snaps = [run["tenant"].snapshot for run in (gpu, cpu)]
+    reqs = gpu["requests"][:200]
+    assert gates.mismatched_indices(
+        [r.value for r in QueryEngine().execute(snaps[0], reqs)],
+        [r.value for r in QueryEngine().execute(snaps[1], reqs)]) == []

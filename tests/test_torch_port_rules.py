@@ -39,8 +39,10 @@ from repro_torch.kernels import (
     reach_closure,
     reach_step,
 )
-from repro_torch.launch import stream_ingest
+from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.models.recsys import fm as tfm
+from repro_torch.serving import QueryEngine, SketchRegistry, synth_requests
+from repro_torch.serving import WorkloadMix
 from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
 from repro_torch.streams.generators import SyntheticStream
@@ -73,6 +75,7 @@ def test_port_imports_neither_jax_nor_reference(path):
     interop.import_state, SyntheticStream.batch, MatrixSketch.create,
     CountMin.create, GSketch.create, SyntheticStream.iter_from,
     tq.heavy_nodes, tfm.init_params, build_fm_cell, interop.fm_params_from_jax,
+    SketchRegistry.__init__, interop.snapshot_state_from_jax,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -91,6 +94,39 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_card():
     assert "CUDA is not available" in proc.stderr
     assert "--device cpu" in proc.stderr
     assert '"ARE"' not in proc.stdout
+
+
+def test_query_serve_cli_defaults_to_cuda_and_refuses_without_a_card():
+    assert query_serve.parse_args([]).device == "cuda"
+    assert SketchRegistry().config()["device"] == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI runs on it")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.query_serve",
+         "--scale", "0.03", "--n-requests", "10"],
+        capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert '"achieved_qps"' not in proc.stdout
+
+
+def test_serving_path_launches_nothing_on_cpu_tensors():
+    for fn in (matrix_ingest, matrix_ingest_edges, matrix_lookup,
+               matrix_lookup_edges, reach_step, reach_closure, embedding_bag):
+        fn.launches = 0
+    reg = SketchRegistry(depth=3, batch_size=1024, scale=0.01, device="cpu")
+    for kind in ("kmatrix", "gmatrix"):
+        t = reg.open("cit-HepPh", kind, 32)
+        t.step(2)
+        snap = t.publish()
+        reqs = synth_requests(64, WorkloadMix(), n_nodes=t.stream.spec.n_nodes,
+                              heavy_universe=128)
+        assert len(QueryEngine().execute(snap, reqs)) == 64
+    assert matrix_ingest_edges.launches == matrix_lookup_edges.launches == 0
+    assert reach_closure.launches == reach_step.launches == 0
+    assert matrix_ingest.launches == matrix_lookup.launches == 0
 
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
