@@ -80,6 +80,33 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      600 requests under ``torch.profiler``: the device's busy and idle
      share over the load window and the top operations by device and host
      time.
+  I. Background and sharded serving: the same two tenants at the same
+     flags with ``--background-ingest`` (publish policy every:4, queue 64,
+     backpressure block; ingest in a runtime worker thread while the main
+     thread serves), the kMatrix again with ``--ingest-dedup``, then both
+     with ``--shards 4`` (four shards on the one card).  Launch counts are
+     zeroed just before and read just after each run, and the run's
+     ``SnapshotBuffer.ingest`` calls are counted by wrapping the method:
+     ``matrix_ingest_edges`` once per buffer ingest, ``reach_closure`` once
+     per closure miss (sharded: one over the summed shard layers), no
+     ``reach_step``, ``matrix_lookup_edges`` only for the gMatrix.  Gates:
+     no unaccounted or dropped edge, the worker stopped, 421,578 edges; the
+     final front (sharded: ``merged_snapshot()``) bit-equal to phase H's
+     replays on the card and the CPU (counters; the overflow tally depends
+     on dispatch sizes); the first 1,000 requests equal to the direct
+     answers on the card (sharded: ``sharded_direct_answers``, and the CPU
+     sharded engine on a CPU replay of the four shard views); dedup's
+     pools and conn equal to the run without it; sharded conservation.
+     Then a sharded crash and resume through ``attach_shards`` with
+     checkpoints (shards at four offsets from pre-filled queues, stopped
+     crash-like, restored into a new registry and drained: the merged
+     front equals the replays, conservation holds, a different
+     ``--shard-seed`` is refused by the manifest); the drain rate of
+     ``measure_sharded_ingest``, 5 drains at each K = 1, 2, 4; and a
+     profiled 600-request window of the sharded kMatrix run.  Each run
+     also prints the engine's groups by family (the hub), each served
+     batch's host time, and each request's latency split at the last
+     buffer ingest, with p99 per 0.5 s window of arrivals.
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
      P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
@@ -147,6 +174,15 @@ SERVE_KINDS = ("kmatrix", "gmatrix")
 SERVE_CHECKED = 1000  # requests whose answers are gated
 SERVE_HELD = 200  # requests asked again of a held snapshot
 SERVE_PROFILED = 600  # requests of the profiled run (0.3 s offered)
+# phase I: the same runs with ingest in runtime workers, then 4 shards
+BG_FLAGS = [*SERVE_FLAGS, "--background-ingest", "--publish-policy",
+            "every:4", "--queue-capacity", "64", "--backpressure", "block"]
+STREAM_EDGES = 421_578  # cit-HepPh, weight > 0
+RESUME_EVERY = 4  # batches between checkpoints of the resumed shards
+RESUME_OFFSETS = (12, 20, 28, 36)  # per shard, multiples of RESUME_EVERY
+DRAIN_SHARDS = (1, 2, 4)
+DRAIN_REPEATS = 5  # drains at each K, for the spread
+LATENCY_BIN_S = 0.5  # width of the arrival windows of the latency timeline
 
 
 def card_line() -> str:
@@ -890,7 +926,8 @@ def _serve_run(smoke, kind):
                 "held one")
     print(f"  {kind}: gates {time.perf_counter() - t1:.1f}s")
     return {"summary": summary, "launches": launches, "run_s": run_s,
-            "families": by_family, "edge_groups": edge_groups}
+            "families": by_family, "edge_groups": edge_groups,
+            "replays": {"card": card_replay, "CPU": cpu_replay}}
 
 
 def _serve_profile(smoke, kind):
@@ -947,6 +984,469 @@ def phase_serving(smoke, card):
         out[kind]["profile"] = _serve_profile(smoke, kind)
     print(f"  {card}; phase H {time.perf_counter() - t0:.1f}s")
     return out
+
+
+# ------------------------------------------------------------ phase I --
+
+def _counting_ingests():
+    """Wrap ``SnapshotBuffer.ingest`` to count its calls (every thread) and
+    note when the last one returned; returns the box and the function that
+    restores the method."""
+    import threading
+
+    from repro_torch.serving.snapshot import SnapshotBuffer
+
+    box, lock, orig = {"n": 0, "last": None}, threading.Lock(), \
+        SnapshotBuffer.ingest
+
+    def counted(self, batch, count=None):
+        out = orig(self, batch, count)
+        with lock:
+            box["n"] += 1
+            box["last"] = time.perf_counter()
+        return out
+
+    SnapshotBuffer.ingest = counted
+
+    def restore():
+        SnapshotBuffer.ingest = orig
+
+    return box, restore
+
+
+class _TimedEngine:
+    """The engine as the load generator sees it, each served batch's host
+    time noted (start, end, requests)."""
+
+    def __init__(self, engine, log: list):
+        self._engine, self._log = engine, log
+
+    def execute(self, snapshot, batch):
+        t = time.perf_counter()
+        out = self._engine.execute(snapshot, batch)
+        self._log.append((t, time.perf_counter(), len(batch)))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+
+def _timeline():
+    """Note the served batches (through ``query_serve.run_load``) and when
+    each stream pump finished; returns the box and the restore function."""
+    from repro_torch.launch import query_serve
+    from repro_torch.runtime.supervisor import StreamPump
+
+    box = {"batches": [], "pumps_done": []}
+    orig_load, orig_pump = query_serve.run_load, StreamPump.run
+
+    def run_load(args, engine, *rest, **kw):
+        return orig_load(args, _TimedEngine(engine, box["batches"]), *rest,
+                         **kw)
+
+    def pump_run(self):
+        try:
+            orig_pump(self)
+        finally:
+            box["pumps_done"].append(time.perf_counter())
+
+    query_serve.run_load, StreamPump.run = run_load, pump_run
+
+    def restore():
+        query_serve.run_load, StreamPump.run = orig_load, orig_pump
+
+    return box, restore
+
+
+def _latency_split(batches, qps, ingest_done, pumps_done) -> dict:
+    """Each request's latency from the served batches (arrival i / qps from
+    the first batch's start, the load generator's clock to a few µs), split
+    at the last buffer ingest: the requests that arrived while the stream
+    was still being ingested, and those after; and p99 per arrival window."""
+    import numpy as np
+
+    t0 = batches[0][0]
+    ends = np.repeat([b[1] for b in batches], [b[2] for b in batches])
+    arrival = np.arange(ends.size) / qps
+    lat = (ends - t0 - arrival) * 1e3
+    cut = ingest_done - t0
+
+    def pcts(x):
+        return ({"n": int(x.size), "p50_ms": float(np.percentile(x, 50)),
+                 "p99_ms": float(np.percentile(x, 99))} if x.size
+                else {"n": 0})
+
+    host = np.array([b[1] - b[0] for b in batches]) * 1e3
+    bins = (arrival // LATENCY_BIN_S).astype(int)
+    return {
+        "served_batches": len(batches),
+        "requests_per_batch": float(ends.size / len(batches)),
+        "host_ms_per_batch": {"mean": float(host.mean()),
+                              "p50": float(np.percentile(host, 50)),
+                              "max": float(host.max())},
+        "host_ms_per_request": float(host.sum() / ends.size),
+        "ingest_done_s": cut,
+        "pumps_done_s": (max(pumps_done) - t0) if pumps_done else None,
+        "arrived_while_ingesting": pcts(lat[arrival < cut]),
+        "arrived_after": pcts(lat[arrival >= cut]),
+        "p99_ms_by_window": [float(np.percentile(lat[bins == b], 99))
+                             for b in range(bins.max() + 1)],
+        "p99_ms_recomputed": float(np.percentile(lat, 99)),
+    }
+
+
+def _bg_run(smoke, label, flags):
+    """One query_serve run in a background mode on the card: its launches
+    counted from zero, its buffer ingests counted, its served batches and
+    engine groups timed on the host, its line printed."""
+    torch = smoke.torch
+    from repro_torch.launch import query_serve
+    from repro_torch.obs import get_hub, reset_hub
+
+    args = query_serve.parse_args([*BG_FLAGS, *flags])
+    ingests, restore = _counting_ingests()
+    timeline, restore_timeline = _timeline()
+    reset_hub()  # the engine's per-family group counts and times
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run = query_serve._run(args)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        restore_timeline()
+    launches = read_launches()
+    by_family = {labels["family"]: {"groups": hs["count"], "ms": hs["sum"] * 1e3}
+                 for name, labels, hs in get_hub().state()["hists"]
+                 if name == "repro_engine_group_seconds"}
+    summary = run["summary"]
+    epochs = summary.get("final_epochs", summary.get("final_epoch"))
+    stats = run["engine"].stats
+    misses = (stats.get("sharded_closure_misses", 0)
+              + stats["closure_misses"])
+    hits = stats.get("sharded_closure_hits", 0) + stats["closure_hits"]
+    print(f"  {label}: achieved_qps={summary['achieved_qps']} offered="
+          f"{summary['offered_qps']} p50_ms={summary['p50_ms']} p99_ms="
+          f"{summary['p99_ms']} ingest_edges_per_s="
+          f"{summary['ingest_edges_per_s']} publishes="
+          f"{summary.get('publishes', '-')} epochs={epochs} closure "
+          f"hits={hits} misses={misses} buffer_ingests={ingests['n']} "
+          f"launches={json.dumps(launches)} "
+          f"({time.perf_counter() - t0:.1f}s run)")
+    print(f"  {label}: engine groups by family over the run, warm-up ladder "
+          f"included (host clock per group, read-back included; sharded: "
+          f"one group per shard): {json.dumps(dict(sorted(by_family.items())))}")
+    split = _latency_split(timeline["batches"], args.qps, ingests["last"],
+                           timeline["pumps_done"])
+    print(f"  {label}: served batches and latency against the ingest "
+          f"(seconds from the first served batch): {json.dumps(split)}")
+    kind = args.sketch
+    smoke.check(abs(split["p99_ms_recomputed"] - summary["p99_ms"]) < 1.0,
+                f"{label}: p99 recomputed from the served batches "
+                f"{split['p99_ms_recomputed']:.3f} ms == the summary's "
+                f"{summary['p99_ms']} (within 1 ms)")
+    smoke.check(launches["matrix_ingest_edges"] == ingests["n"] > 0,
+                f"{label}: matrix_ingest_edges launches == buffer ingests "
+                f"({ingests['n']})")
+    smoke.check(launches["reach_closure"] == misses > 0,
+                f"{label}: reach_closure launches == closure misses "
+                f"({misses})")
+    smoke.check(launches["reach_step"] == launches["matrix_ingest"]
+                == launches["matrix_lookup"] == launches["embedding_bag"]
+                == 0, f"{label}: no reach_step, no rectangle entry point, "
+                "no embedding_bag")
+    lookups = launches["matrix_lookup_edges"]
+    smoke.check(lookups >= 1 if kind == "gmatrix" else lookups == 0,
+                f"{label}: matrix_lookup_edges launches {lookups} "
+                f"({'>= 1' if kind == 'gmatrix' else '0: gathers'})")
+    smoke.check(summary["total_edges"] == STREAM_EDGES,
+                f"{label}: total_edges {summary['total_edges']} == "
+                f"{STREAM_EDGES}")
+    return {**run, "launches": launches, "ingests": ingests["n"],
+            "misses": misses, "families": by_family, "timeline": split}
+
+
+def _same_counters(a, b) -> bool:
+    """Counters (pools and conn, or the table) and layout equal; the
+    overflow tally is left out: coalesced and shard dispatches have other
+    batch sizes than a replay's."""
+    from repro_torch import interop
+    from repro_torch.serving import gates
+
+    return (gates.layout_counters_equal(a, b)
+            and interop.export_state(a)[1] == interop.export_state(b)[1])
+
+
+def _bg_gates(smoke, label, run, replays):
+    from repro_torch.serving import QueryEngine, gates
+    from repro_torch.serving import engine as eng
+
+    summary, final = run["summary"], run["tenant"].snapshot
+    smoke.check(summary["unaccounted_edges"] == summary["dropped_edges"] == 0
+                and summary["worker_state"] == "stopped",
+                f"{label}: unaccounted_edges 0, dropped_edges 0, worker "
+                f"{summary['worker_state']}")
+    for where, replay in replays.items():
+        smoke.check(_same_counters(final.sketch, replay),
+                    f"{label}: final front == phase H's replay on the "
+                    f"{where}")
+    reqs = run["requests"][:SERVE_CHECKED]
+    got = [r.value for r in QueryEngine().execute(final, reqs)]
+    smoke.check(gates.mismatched_indices(got, eng.direct_answers(final, reqs))
+                == [], f"{label}: engine answers to {len(reqs)} requests on "
+                "the final snapshot == direct answers on the card")
+
+
+def _cpu_shard_snapshot(sharded):
+    """The sharded tenant's shard views replayed on the CPU through the
+    plain versions, as one ShardedSnapshot."""
+    from repro_torch import interop
+    from repro_torch.serving import ShardedSnapshot, gates
+    from repro_torch.serving.snapshot import Snapshot
+
+    parts = []
+    for shard in sharded.shards:
+        sk = shard.snapshot.sketch
+        template = interop.import_state(
+            *interop.export_state(shard.mod.empty_like(sk)), device="cpu")
+        replay = gates.replay_sketch(shard.mod, template, shard.stream,
+                                     shard.stream.num_batches)
+        parts.append(Snapshot(shard.snapshot.tenant_id + "/cpu",
+                              shard.snapshot.epoch, replay,
+                              shard.snapshot.kind, shard.snapshot.n_edges))
+    return ShardedSnapshot(sharded.key.tenant_id + "/cpu", sharded.plan,
+                           tuple(parts))
+
+
+def _sharded_gates(smoke, label, run, replays):
+    from repro_torch.serving import (QueryEngine, ShardedQueryEngine, gates,
+                                     sharded_direct_answers)
+
+    summary, st = run["summary"], run["tenant"]
+    smoke.check(summary["conservation_ok"]
+                and sum(summary["per_shard_published"]) == STREAM_EDGES
+                and summary["dropped_edges"] == 0,
+                f"{label}: conservation_ok, per_shard_published "
+                f"{summary['per_shard_published']} sums to {STREAM_EDGES}")
+    merged = st.merged_snapshot()
+    for where, replay in replays.items():
+        smoke.check(_same_counters(merged.sketch, replay),
+                    f"{label}: merged_snapshot() == phase H's replay on the "
+                    f"{where}")
+    snap, reqs = st.snapshot, run["requests"][:SERVE_CHECKED]
+    got = [r.value for r in ShardedQueryEngine(QueryEngine()).execute(
+        snap, reqs)]
+    on_cpu = [r.value for r in ShardedQueryEngine(QueryEngine()).execute(
+        _cpu_shard_snapshot(st), reqs)]
+    smoke.check(gates.mismatched_indices(
+        got, sharded_direct_answers(snap, reqs)) == []
+        and gates.mismatched_indices(got, on_cpu) == [],
+        f"{label}: ShardedQueryEngine answers to {len(reqs)} requests == "
+        "sharded_direct_answers on the card == the CPU engine on a CPU "
+        "replay of the shard views")
+
+
+def _sharded_resume(smoke, replays):
+    """Crash and resume, sharded: the kMatrix shards taken to different
+    offsets from pre-filled queues, stopped crash-like, restored into a new
+    registry from their checkpoints and drained."""
+    torch = smoke.torch
+    from repro_torch.runtime import QueueItem, Runtime
+    from repro_torch.serving import (SketchRegistry, attach_shards,
+                                     read_shard_manifest, sharded_conservation)
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        reset_launches()
+        reg = SketchRegistry(depth=5, scale=1.0, device="cuda")
+        st = reg.open_sharded("cit-HepPh", "kmatrix", 256, n_shards=4)
+        rt = Runtime(queue_capacity=64, publish_policy="every:4",
+                     checkpoint_dir=ckpt, checkpoint_every=RESUME_EVERY)
+        handles = attach_shards(rt, st)
+        rt.start(pumps=False)
+        for h, n in zip(handles, RESUME_OFFSETS):
+            for i in range(n):
+                h.queue.put(QueueItem.from_arrays(
+                    i, *h.tenant.stream.batch_numpy(i)), timeout=60)
+        deadline = time.monotonic() + 300
+        while not all(h.worker.metrics.checkpoints >= n // RESUME_EVERY
+                      and h.worker.metrics.ingested_batches >= n
+                      for h, n in zip(handles, RESUME_OFFSETS)):
+            if time.monotonic() > deadline:
+                raise TimeoutError("shards did not reach their offsets")
+            time.sleep(0.01)
+        rt.stop(drain=False, timeout=60)
+        crashed = [s.offset for s in st.shards]
+        manifest = read_shard_manifest(ckpt)
+
+        reg_b = SketchRegistry(depth=5, scale=1.0, device="cuda")
+        st_b = reg_b.open_sharded("cit-HepPh", "kmatrix", 256,
+                                  n_shards=manifest["n_shards"],
+                                  shard_seed=manifest["shard_seed"])
+        rt_b = Runtime(queue_capacity=64, publish_policy="every:4",
+                       checkpoint_dir=ckpt)
+        handles_b = attach_shards(rt_b, st_b, restore=True)
+        restored = [s.offset for s in st_b.shards]
+        rt_b.start()
+        rt_b.join_pumps(300)
+        rt_b.stop(drain=True, timeout=300)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        cons = sharded_conservation(handles_b, st_b.stream.spec.n_edges)
+        print(f"  resume: crashed at offsets {crashed}, restored at "
+              f"{restored}; {json.dumps(cons)}; launches "
+              f"{json.dumps(launches)}")
+        smoke.check(crashed == restored == list(RESUME_OFFSETS),
+                    f"resume: each shard restored at the offset it crashed "
+                    f"at ({list(RESUME_OFFSETS)})")
+        smoke.check(cons["conservation_ok"]
+                    and cons["published_edges"] == STREAM_EDGES,
+                    "resume: conservation over the restored shards")
+        merged = st_b.merged_snapshot()
+        for where, replay in replays.items():
+            smoke.check(_same_counters(merged.sketch, replay),
+                        f"resume: merged front == phase H's replay on the "
+                        f"{where}")
+        other = SketchRegistry(depth=5, scale=1.0, device="cuda").open_sharded(
+            "cit-HepPh", "kmatrix", 256, n_shards=4, shard_seed=1)
+        try:
+            attach_shards(Runtime(checkpoint_dir=ckpt), other, restore=True)
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        smoke.check("manifest" in refused,
+                    "resume: the manifest refuses --shard-seed 1 "
+                    f"({refused[:60]!r})")
+        return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _drain_rates(smoke):
+    """``measure_sharded_ingest`` DRAIN_REPEATS times at each K, each on a
+    fresh sharded tenant: every drain's rate and worker dispatches (buffer
+    ingests less the warm-up's), then the spread at each K."""
+    from repro_torch.serving import SketchRegistry, measure_sharded_ingest
+    from repro_torch.serving import sharding
+
+    rows, warm = [], sharding.warm_ingest_shapes
+
+    def warm_counted(tenant):
+        box["warm"] = warm(tenant)
+        return box["warm"]
+
+    for k in DRAIN_SHARDS:
+        rates = []
+        for rep in range(DRAIN_REPEATS):
+            st = SketchRegistry(depth=5, scale=1.0, device="cuda").open_sharded(
+                "cit-HepPh", "kmatrix", 256, n_shards=k)
+            box, restore = _counting_ingests()
+            sharding.warm_ingest_shapes = warm_counted
+            try:
+                out = measure_sharded_ingest(st)
+            finally:
+                restore()
+                sharding.warm_ingest_shapes = warm
+            dispatches = box["n"] - box["warm"]
+            print(f"  drain K={k} #{rep}: {out['edges_per_s']} edges/s over "
+                  f"{out['wall_s']} s, {dispatches} worker dispatches, "
+                  f"conserved={out['conserved']}")
+            smoke.check(out["conserved"] and out["queued_edges"] == STREAM_EDGES,
+                        f"drain K={k} #{rep}: every queued edge published")
+            rates.append(out["edges_per_s"])
+            rows.append({**out, "dispatches": dispatches})
+        print(f"  drain K={k} over {DRAIN_REPEATS} drains: edges/s min "
+              f"{min(rates)} median {statistics.median(rates)} max "
+              f"{max(rates)}")
+    return rows
+
+
+def _sharded_profile(smoke):
+    """A 600-request window of the sharded kMatrix run under
+    ``torch.profiler`` (the worker threads' kernels included): the device's
+    busy and idle share and the top operations."""
+    torch = smoke.torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import query_serve
+
+    box, orig = {}, query_serve.run_load
+
+    def profiled(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            box["window"] = time.perf_counter() - t0
+        box["prof"], box["report"] = prof, out[0]
+        return out
+
+    query_serve.run_load = profiled
+    try:
+        query_serve._run(query_serve.parse_args(
+            [*BG_FLAGS, "--sketch", "kmatrix", "--shards", "4",
+             "--n-requests", str(SERVE_PROFILED)]))
+    finally:
+        query_serve.run_load = orig
+    events = box["prof"].key_averages()
+    busy = sum(_self_device_us(e) for e in events) / 1e3
+    report, window = box["report"], box["window"]
+    row = {"requests": report.n_requests, "batches": report.n_batches,
+           "window_ms": window * 1e3, "device_busy_ms": busy,
+           "idle_share": 1 - busy / (window * 1e3),
+           "achieved_qps": report.achieved_qps, "p50_ms": report.p50_ms,
+           "p99_ms": report.p99_ms}
+    print(f"  sharded kmatrix, load window under the profiler: "
+          f"{json.dumps(row)}")
+    for e in sorted(events, key=_self_device_us, reverse=True)[:8]:
+        if _self_device_us(e) > 0:
+            print(f"    device {_self_device_us(e) / 1e3:9.3f} ms  "
+                  f"x{e.count:6d}  {e.key[:90]}")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:8]:
+        print(f"    host   {e.self_cpu_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:6d}  {e.key[:90]}")
+    smoke.check(busy > 0, "sharded kmatrix: the profiled window ran on the "
+                "device")
+    return row
+
+
+def phase_background(smoke, card, serve):
+    """Background and sharded serving on the card, gated against phase H's
+    replays of the full stream (after a full drain every mode's final front
+    must equal them)."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    for kind in SERVE_KINDS:
+        replays = serve[kind]["replays"]
+        run = _bg_run(smoke, f"background {kind}", ["--sketch", kind])
+        _bg_gates(smoke, f"background {kind}", run, replays)
+        launches[f"background {kind}"] = run["launches"]
+        out[f"background {kind}"] = run["summary"]
+        if kind == "kmatrix":
+            dedup = _bg_run(smoke, "background kmatrix dedup",
+                            ["--sketch", kind, "--ingest-dedup"])
+            _bg_gates(smoke, "background kmatrix dedup", dedup, replays)
+            smoke.check(_same_counters(dedup["tenant"].snapshot.sketch,
+                                       run["tenant"].snapshot.sketch),
+                        "background kmatrix: --ingest-dedup pools and conn "
+                        "== the run without it")
+            launches["background kmatrix dedup"] = dedup["launches"]
+            out["background kmatrix dedup"] = dedup["summary"]
+    for kind in SERVE_KINDS:
+        label = f"sharded {kind}"
+        run = _bg_run(smoke, label, ["--sketch", kind, "--shards", "4"])
+        _sharded_gates(smoke, label, run, serve[kind]["replays"])
+        launches[label] = run["launches"]
+        out[label] = run["summary"]
+    launches["sharded kmatrix resume"] = _sharded_resume(
+        smoke, serve["kmatrix"]["replays"])
+    out["drain"] = _drain_rates(smoke)
+    out["profile"] = _sharded_profile(smoke)
+    print(f"  {card}; phase I {time.perf_counter() - t0:.1f}s")
+    return {"runs": out, "launches": launches}
 
 
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
@@ -1399,7 +1899,7 @@ def _summary(name, source, replaces, launches, main, rows):
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach, fm, serve):
+def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg):
     torch = smoke.torch
     import numpy as np
 
@@ -1532,7 +2032,8 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve):
     batch_sum = summed(kmat)
     # one serve_p99 forward: its three bags
     p99 = summed([r for k, r in bag_rows.items() if k.startswith("serve_p99")])
-    served = {f"serve {k}": v["launches"] for k, v in serve.items()}
+    served = {**{f"serve {k}": v["launches"] for k, v in serve.items()},
+              **bg["launches"]}
     by_path = {"kmatrix": sl["launches"],
                **{k: v for k, v in cmp["launches"].items()},
                "fm": fm["launches"], **served}
@@ -1609,10 +2110,12 @@ def main() -> int:
         smoke.phase("E. where the ingest time goes", phase_profile, smoke, sl)
     serve = (smoke.phase("H. online serving", phase_serving, smoke, card)
              if card else None)
+    bg = (smoke.phase("I. background and sharded serving", phase_background,
+                      smoke, card, serve) if serve else None)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
-                           cmp, reach, fm, serve)
+                           cmp, reach, fm, serve, bg)
                if reach is not None and fm is not None and serve is not None
-               else None)
+               and bg is not None else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

@@ -390,6 +390,54 @@ def plan_partitions_auto(
     return best
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Deterministic hash-band routing of edges to ``n_shards`` sketch shards.
+
+    The scale-out layer ABOVE the intra-sketch partition plan: a whole edge
+    (not a counter) is owned by exactly one shard, chosen by a
+    multiply-shift hash band of its SOURCE vertex.  Routing by source is the
+    invariant every sharded query leans on (DESIGN.md §Sharding): all
+    out-edges of a vertex land in one shard, so edge-frequency and
+    node-out-degree queries are answerable by the owning shard alone, and
+    because the shards partition the stream, the merge of all shard sketches
+    (same layout, same hash family) is bit-identical to a single sketch that
+    ingested the whole stream.
+
+    The hash constants derive only from ``(seed, n_shards)``, independent of
+    any sketch's hash family, so re-seeding a sketch never re-routes the
+    stream.  Host-side numpy, line for line the JAX package's, so both
+    packages route every id (negative ones wrap as uint32) to one shard.
+    """
+
+    n_shards: int
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        rng = np.random.default_rng((self.seed << 8) ^ 0x5A17D)
+        object.__setattr__(
+            self, "_a", np.uint32(int(rng.integers(0, 1 << 32)) | 1))
+        object.__setattr__(
+            self, "_b", np.uint32(int(rng.integers(0, 1 << 32))))
+
+    def shard_of(self, src) -> np.ndarray:
+        """Owning shard for each source vertex (scalar or any-shape array)."""
+        x = np.asarray(src, dtype=np.uint32)
+        with np.errstate(over="ignore"):
+            h = self._a * x + self._b
+            h ^= h >> np.uint32(16)
+            h *= np.uint32(0x7FEB352D)
+            h ^= h >> np.uint32(15)
+        # fastrange: (h * K) >> 32 maps uniformly onto [0, n_shards)
+        band = (h.astype(np.uint64) * np.uint64(self.n_shards)) >> np.uint64(32)
+        return band.astype(np.int32)
+
+    def shard_of_one(self, src: int) -> int:
+        return int(self.shard_of(np.asarray([src], dtype=np.int64))[0])
+
+
 def plan_for(
     partitioner: str,
     stats: VertexStats,

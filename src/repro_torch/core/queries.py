@@ -26,6 +26,7 @@ from repro_torch.core import kmatrix_accel as kma
 from repro_torch.core import matrix_sketch as ms
 from repro_torch.kernels.ops import accel_reach_closure
 from repro_torch.kernels.reach_closure import reach_step, reach_step_plain
+from repro_torch.obs.profile import profile_call
 
 CLOSURE_BACKENDS = ("kernel", "plain")
 
@@ -53,10 +54,11 @@ def build_closure(adj_layers: torch.Tensor, max_hops: int | None = None, *,
     Equal to the JAX package's ``build_closure`` under either of its
     backends: squarings of a 0/1 float32 matrix are exact for w < 2^24.
     """
-    step = reach_step if closure_backend(backend) == "kernel" else reach_step_plain
-    return accel_reach_closure(
-        adj_layers, n_steps=_closure_steps(adj_layers.shape[-1], max_hops),
-        step=step)
+    backend = closure_backend(backend)
+    step = reach_step if backend == "kernel" else reach_step_plain
+    return profile_call(f"closure:{backend}", accel_reach_closure, adj_layers,
+                        n_steps=_closure_steps(adj_layers.shape[-1], max_hops),
+                        step=step)
 
 
 def reachability_from_closure(closure: torch.Tensor, hi: torch.Tensor,

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -87,6 +88,18 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all((name,))
     return ctypes.CDLL(str(path))
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel's launch count, read and
+    zeroed by callers as a plain attribute).  ``+= 1`` is a read, an add and
+    a store, so two threads launching at once (an ingest worker and the
+    query thread) could lose a count; one lock makes every increment whole."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, prefix: str, code: int) -> None:

@@ -168,7 +168,7 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
                   None if weights is None else weights.data_ptr(),
                   out.data_ptr(), b, f, d, *plan, stream)
     build.check(lib, "embedding_bag", code)
-    embedding_bag.launches += 1
+    build.count_launch(embedding_bag)
     return out
 
 

@@ -100,7 +100,7 @@ def matrix_ingest(pool: torch.Tensor, hi: torch.Tensor, hj: torch.Tensor,
         code = fn(pool.data_ptr(), hi.data_ptr(), hj.data_ptr(), wt.data_ptr(),
                   d, p, w, hi.shape[2], stream)
     build.check(lib, "matrix_ingest", code)
-    matrix_ingest.launches += 1
+    build.count_launch(matrix_ingest)
     return pool
 
 
@@ -280,7 +280,7 @@ def matrix_ingest_edges(pools, a, b, src, dst, weight, *, route=None,
                   weight.data_ptr(), a.data_ptr(), b.data_ptr(), n_edges, d,
                   *routed, -(-d // LAYERS_PER_THREAD), stream)
     build.check(lib, "matrix_ingest", code)
-    matrix_ingest_edges.launches += 1
+    build.count_launch(matrix_ingest_edges)
 
 
 matrix_ingest_edges.launches = 0

@@ -99,7 +99,7 @@ def matrix_lookup(pool: torch.Tensor, hi: torch.Tensor,
         code = fn(pool.data_ptr(), hi.data_ptr(), hj.data_ptr(), out.data_ptr(),
                   d, p, w, hi.shape[2], stream)
     build.check(lib, "matrix_lookup", code)
-    matrix_lookup.launches += 1
+    build.count_launch(matrix_lookup)
     return out
 
 
@@ -171,7 +171,7 @@ def matrix_lookup_edges(table: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         code = fn(table.data_ptr(), a.data_ptr(), b.data_ptr(), src.data_ptr(),
                   dst.data_ptr(), out.data_ptr(), d, w, n, stream)
     build.check(lib, "matrix_lookup", code)
-    matrix_lookup_edges.launches += 1
+    build.count_launch(matrix_lookup_edges)
     return out
 
 

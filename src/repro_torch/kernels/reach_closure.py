@@ -133,7 +133,7 @@ def reach_step(reach: torch.Tensor) -> torch.Tensor:
         code = fn(reach.data_ptr(), out.data_ptr(), d, w, step_tile(d, w),
                   stream)
     build.check(lib, "reach_step", code)
-    reach_step.launches += 1
+    build.count_launch(reach_step)
     return out
 
 
@@ -163,7 +163,7 @@ def reach_closure(table: torch.Tensor, n_steps: int) -> torch.Tensor:
     with build.on_device(table.device) as stream:
         code = fn(table.data_ptr(), out.data_ptr(), d, w, n_steps, stream)
     build.check(lib, "reach_closure", code)
-    reach_closure.launches += 1
+    build.count_launch(reach_closure)
     return out
 
 

@@ -1,0 +1,231 @@
+"""Live per-worker ingest metrics (DESIGN.md §Runtime).
+
+A copy of the JAX package's ``runtime/metrics.py``, which imports neither
+JAX nor numpy: the port keeps its own so that it never imports ``repro``.
+One ``WorkerMetrics`` per ingest worker, written by that worker's thread
+and read by anyone via ``snapshot()`` or the locked accessors.  The old
+contract — "single-writer; plain attribute stores are atomic under the
+GIL" — was true per *store* but not per *snapshot*: a reader could see
+``publishes`` from after a publish and ``publish_latency_sum_s`` from
+before it, i.e. torn multi-field reads (flagged by the lock-discipline
+rule of the JAX package's ``analysis``).  All counter mutation and every multi-field
+read now happens under ``_lock``; hub instrument mirroring stays outside
+it (instruments carry their own locks — nesting would add lock-order
+edges for no benefit).
+
+The rates use an exponentially-weighted moving average so a dashboard
+polling ``Runtime.metrics()`` sees the *recent* ingest rate, not a
+lifetime mean diluted by warmup.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+
+
+class RateEWMA:
+    """Exponentially-weighted event rate (events/s) with a time half-life."""
+
+    def __init__(self, halflife_s: float = 5.0) -> None:
+        self.halflife_s = halflife_s
+        self._rate = 0.0
+        self._last: float | None = None
+        self._carry = 0.0
+
+    def update(self, n: float, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        if self._last is None:
+            # First sample defines the interval start; its count can't be
+            # turned into a rate yet, so carry it into the next interval
+            # instead of dropping it (which understated early rates).
+            self._last = now
+            self._carry = n
+            return
+        dt = max(now - self._last, 1e-9)
+        inst = (n + self._carry) / dt
+        self._carry = 0.0
+        alpha = 1.0 - 0.5 ** (dt / self.halflife_s)
+        self._rate += alpha * (inst - self._rate)
+        self._last = now
+
+    @property
+    def rate(self) -> float:
+        return self._rate
+
+
+@dataclasses.dataclass
+class WorkerMetrics:
+    """Locked counters for one ingest worker (one writer, many readers)."""
+
+    started_at: float = 0.0  # guarded-by: _lock
+    # monotonic timestamps of the first/last real ingest dispatch: the honest
+    # wall for throughput numbers (excludes spawn/compile warmup before the
+    # first batch).  CLOCK_MONOTONIC is system-wide on Linux, so these are
+    # comparable across the process boundary (runtime/backend.py relies on
+    # that to time multi-process drains from per-worker metrics alone).
+    first_ingest_at: float = 0.0  # guarded-by: _lock
+    last_ingest_at: float = 0.0  # guarded-by: _lock
+    ingested_batches: int = 0  # guarded-by: _lock
+    ingested_edges: int = 0  # guarded-by: _lock
+    batches_since_publish: int = 0  # guarded-by: _lock
+    publishes: int = 0  # guarded-by: _lock
+    last_publish_at: float = 0.0  # guarded-by: _lock
+    last_publish_latency_s: float = 0.0  # guarded-by: _lock
+    publish_latency_sum_s: float = 0.0  # guarded-by: _lock
+    checkpoints: int = 0  # guarded-by: _lock
+    last_checkpoint_at: float = 0.0  # guarded-by: _lock
+    # duplicate-edge pre-aggregation (worker dedup path): raw weight!=0 rows
+    # seen vs unique (src, dst) rows actually dispatched — their ratio is
+    # the scatter-row compression the fast path wins on skewed streams
+    dedup_raw_rows: int = 0  # guarded-by: _lock
+    dedup_unique_rows: int = 0  # guarded-by: _lock
+
+    def __post_init__(self) -> None:
+        self._lock = threading.Lock()
+        self.edge_rate = RateEWMA()
+        self._hub_edges = None
+        self._hub_batches = None
+        self._hub_batch_hist = None
+        self._hub_publishes = None
+        self._hub_publish_hist = None
+        self._hub_dedup_raw = None
+        self._hub_dedup_unique = None
+
+    def bind_hub(self, tenant_id: str, backend: str = "") -> None:
+        """Mirror this worker's counters into typed hub instruments
+        (``repro_torch.obs``), labeled by tenant/backend.  In remote workers the hub
+        is child-local; its state reaches the parent via metrics beats."""
+        from repro_torch.obs.hub import get_hub
+        hub = get_hub()
+        labels = {"tenant": tenant_id}
+        if backend:
+            labels["backend"] = backend
+        self._hub_edges = hub.counter(
+            "repro_ingest_edges_total", "edges ingested", **labels)
+        self._hub_batches = hub.counter(
+            "repro_ingest_batches_total", "batches ingested", **labels)
+        self._hub_batch_hist = hub.histogram(
+            "repro_ingest_batch_edges", "edges per ingested batch",
+            ladder="size", **labels)
+        self._hub_publishes = hub.counter(
+            "repro_publish_total", "snapshot publishes", **labels)
+        self._hub_publish_hist = hub.histogram(
+            "repro_publish_latency_seconds", "publish latency", **labels)
+        self._hub_dedup_raw = hub.counter(
+            "repro_ingest_dedup_raw_rows_total",
+            "raw weight!=0 rows entering pre-aggregation", **labels)
+        self._hub_dedup_unique = hub.counter(
+            "repro_ingest_dedup_unique_rows_total",
+            "unique (src,dst) rows dispatched after pre-aggregation",
+            **labels)
+
+    def note_started(self, now: float) -> None:
+        with self._lock:
+            self.started_at = now
+
+    def note_ingest(self, n_edges: int, now: float) -> None:
+        with self._lock:
+            if not self.first_ingest_at:
+                self.first_ingest_at = now
+            self.last_ingest_at = now
+            self.ingested_batches += 1
+            self.ingested_edges += n_edges
+            self.batches_since_publish += 1
+            self.edge_rate.update(n_edges, now)
+        # hub instruments lock themselves; mirrored outside _lock so the
+        # static lock-order graph gains no metrics->hub edge
+        if self._hub_edges is not None:
+            self._hub_edges.inc(n_edges)
+            self._hub_batches.inc()
+            self._hub_batch_hist.observe(n_edges)
+
+    def note_publish(self, latency_s: float, now: float) -> None:
+        with self._lock:
+            self.publishes += 1
+            self.batches_since_publish = 0
+            self.last_publish_at = now
+            self.last_publish_latency_s = latency_s
+            self.publish_latency_sum_s += latency_s
+        if self._hub_publishes is not None:
+            self._hub_publishes.inc()
+            self._hub_publish_hist.observe(latency_s)
+
+    def note_dedup(self, raw_rows: int, unique_rows: int) -> None:
+        with self._lock:
+            self.dedup_raw_rows += raw_rows
+            self.dedup_unique_rows += unique_rows
+        if self._hub_dedup_raw is not None:
+            self._hub_dedup_raw.inc(raw_rows)
+            self._hub_dedup_unique.inc(unique_rows)
+
+    def note_checkpoint(self, now: float) -> None:
+        with self._lock:
+            self.checkpoints += 1
+            self.last_checkpoint_at = now
+
+    def pending_batches(self) -> int:
+        """Batches ingested since the last publish (consistent read)."""
+        with self._lock:
+            return self.batches_since_publish
+
+    def total_edges(self) -> int:
+        with self._lock:
+            return self.ingested_edges
+
+    def snapshot(self, *, queue_stats: dict, state: str, epoch: int,
+                 overflow_edges: int = 0, now: float | None = None) -> dict:
+        """One JSON-able metrics view; ``queue_stats`` from the worker's queue.
+
+        Taken under ``_lock`` so derived values (mean latency, lifetime
+        rate) divide counters from the same instant — the reason this
+        class grew a lock at all."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            # Lifetime throughput walls at the FIRST INGEST, not worker
+            # start: billing spawn/compile warmup understated the rate and
+            # contradicted the bench wall in runtime/backend.py (which uses
+            # first_ingest_at).
+            elapsed = max(now - self.first_ingest_at, 1e-9) \
+                if self.first_ingest_at else 0.0
+            return {
+                "state": state,
+                "epoch": epoch,
+                "epoch_age_s": round(now - self.last_publish_at, 4)
+                if self.last_publish_at else None,
+                "ingested_batches": self.ingested_batches,
+                "ingested_edges": self.ingested_edges,
+                "first_ingest_at": self.first_ingest_at,
+                "last_ingest_at": self.last_ingest_at,
+                "batches_since_publish": self.batches_since_publish,
+                "edges_per_s_ewma": round(self.edge_rate.rate, 1),
+                "edges_per_s_lifetime": round(
+                    self.ingested_edges / elapsed, 1)
+                if elapsed else 0.0,
+                "publishes": self.publishes,
+                "last_publish_at": self.last_publish_at,
+                "last_publish_latency_ms": round(
+                    self.last_publish_latency_s * 1e3, 3),
+                "mean_publish_latency_ms": round(
+                    self.publish_latency_sum_s / self.publishes * 1e3, 3)
+                if self.publishes else 0.0,
+                "checkpoints": self.checkpoints,
+                # pre-aggregation compression: raw/unique ≥ 1 once the
+                # dedup path is on; 0/0 (ratio None) when it is off
+                "dedup_raw_rows": self.dedup_raw_rows,
+                "dedup_unique_rows": self.dedup_unique_rows,
+                "dedup_ratio": round(
+                    self.dedup_raw_rows / self.dedup_unique_rows, 4)
+                if self.dedup_unique_rows else None,
+                # accel-backend scatter-fallback volume (0 on the flat
+                # backend): a rising rate means per-partition dispatch
+                # capacity is being outgrown and ingest is silently paying
+                # scatter cost
+                "overflow_edges": overflow_edges,
+                "queue_depth": queue_stats["depth"],
+                "ingest_lag_batches": queue_stats["depth"],
+                "dropped_batches": queue_stats["dropped_batches"],
+                "dropped_edges": queue_stats["dropped_edges"],
+                "spilled_batches": queue_stats["spilled_batches"],
+                "max_queue_depth": queue_stats["max_depth_seen"],
+            }

@@ -1,0 +1,391 @@
+"""Runtime supervisor: background ingest behind the serving engine.
+
+The JAX package's ``runtime/supervisor.py`` on the port.  ``Runtime`` owns
+the concurrency story that ``launch/query_serve.py --background-ingest``
+builds on: per tenant, a ``StreamPump`` thread reads the seekable stream
+and feeds a ``BoundedEdgeQueue`` (explicit backpressure), a worker built
+by the configured **execution backend** (``backend="thread"``: an
+``IngestWorker`` thread, see ``runtime/backend.py``) folds batches into
+the delta sketch and publishes epochs, and the supervisor provides
+lifecycle (start / health / graceful drain-and-stop / crash-like kill),
+live metrics, conservation accounting, and crash-safe checkpoint/restore —
+all written once against the backend interface.  Query threads are *not*
+managed here — they just read ``tenant.snapshot``, a published epoch that
+nothing writes again.
+
+Conservation contract (tested; the serve bench gates on it): for every
+tenant, ``offered == ingested + dropped`` and after a graceful stop
+``published - base == ingested`` — no edge is lost or double-counted,
+and drops (only under the ``drop_oldest`` policy) are explicit numbers,
+never silence.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from repro_torch.obs.hub import get_hub
+from repro_torch.obs.trace import get_trace_log, new_trace_id
+from repro_torch.runtime.backend import WorkerFailure, resolve_backend
+from repro_torch.runtime.queueing import BLOCK, SPILL, BoundedEdgeQueue, QueueItem
+from repro_torch.runtime.worker import FAILED, restore_worker_state
+from repro_torch.streams.reservoir import Reservoir
+
+
+class StreamPump(threading.Thread):
+    """Producer thread: seekable stream -> bounded queue, FIFO, accounted."""
+
+    def __init__(self, stream, queue: BoundedEdgeQueue, *,
+                 start_offset: int = 0, max_batches: int | None = None,
+                 throttle_s: float = 0.0) -> None:
+        super().__init__(name="stream-pump", daemon=True)
+        self.stream = stream
+        self.queue = queue
+        self.start_offset = start_offset
+        self.max_batches = max_batches
+        self.throttle_s = throttle_s
+        self.offered_batches = 0
+        self.offered_edges = 0
+        self.done = False  # reached end of stream (or max_batches) cleanly
+        self._stop_event = threading.Event()
+
+    def request_stop(self) -> None:
+        self._stop_event.set()
+
+    def run(self) -> None:
+        i = self.start_offset
+        end = self.stream.num_batches
+        if self.max_batches is not None:
+            end = min(end, self.start_offset + self.max_batches)
+        trace = get_trace_log()
+        while i < end and not self._stop_event.is_set():
+            src, dst, w = self.stream.batch_numpy(i)
+            item = QueueItem.from_arrays(i, src, dst, w,
+                                         trace_id=new_trace_id())
+            while not self._stop_event.is_set():
+                if self.queue.put(item, timeout=0.2):
+                    self.offered_batches += 1
+                    self.offered_edges += item.n_edges
+                    trace.emit(item.trace_id, "ingest", "enqueue",
+                               offset=i, n_edges=item.n_edges)
+                    break
+                if self.queue.closed:
+                    return  # killed under us; offered stays = accepted
+            else:
+                return
+            i += 1
+            if self.throttle_s:
+                time.sleep(self.throttle_s)
+        self.done = i >= end
+
+
+class TenantRuntime:
+    """Handle bundling one tenant's pump + queue + backend worker."""
+
+    def __init__(self, tenant, queue: BoundedEdgeQueue, worker,
+                 pump: StreamPump | None) -> None:
+        self.tenant = tenant
+        self.queue = queue
+        self.worker = worker
+        self.pump = pump
+        self._external_edges = 0
+
+    @property
+    def tenant_id(self) -> str:
+        return self.tenant.key.tenant_id
+
+    def submit(self, src, dst, weight, timeout: float | None = None) -> bool:
+        """Enqueue an external (non-pump) batch; offsets are synthetic (-1)
+        so checkpoint replay does not apply to externally-submitted edges."""
+        item = QueueItem.from_arrays(-1, src, dst, weight,
+                                     trace_id=new_trace_id())
+        ok = self.queue.put(item, timeout=timeout)
+        if ok:
+            self._external_edges += item.n_edges
+            get_trace_log().emit(item.trace_id, "ingest", "enqueue",
+                                 offset=-1, n_edges=item.n_edges,
+                                 tenant=self.tenant_id)
+        return ok
+
+    def conservation(self) -> dict:
+        """Edge-mass accounting: offered vs ingested vs dropped vs published."""
+        qstats = self.queue.stats()
+        offered = qstats["accepted_edges"]
+        ingested = self.worker.ingested_edges  # backend-neutral accessor
+        dropped = qstats["dropped_edges"]
+        published = self.tenant.snapshot.n_edges
+        base = self.worker.base_edges
+        return {
+            "offered_edges": offered,
+            "ingested_edges": ingested,
+            "dropped_edges": dropped,
+            "in_queue_edges": offered - ingested - dropped,
+            "published_edges": published,
+            "base_edges": base,
+            # zero after a graceful drain-and-stop: every offered edge is
+            # either published or an accounted drop
+            "unaccounted_edges": offered - dropped - (published - base),
+        }
+
+
+class Runtime:
+    """Supervisor for background ingest workers over a sketch registry."""
+
+    def __init__(self, *, queue_capacity: int = 64, backpressure: str = BLOCK,
+                 publish_policy: str = "every:4", reservoir_k: int = 4096,
+                 checkpoint_dir: str | None = None, checkpoint_every: int = 0,
+                 spill_dir: str | None = None, poll_s: float = 0.02,
+                 coalesce_batches: int = 1,
+                 coalesce_target: int = 8192,
+                 dedup: bool = False,
+                 backend: str = "thread") -> None:
+        # execution backend: where workers run ("thread" | an
+        # ExecutionBackend instance) — everything below is written against
+        # the runtime/backend.py contract, not a concrete worker class
+        self.backend = resolve_backend(backend)
+        self.queue_capacity = queue_capacity
+        self.backpressure = backpressure
+        self.publish_policy = publish_policy
+        self.reservoir_k = reservoir_k
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        self.spill_dir = spill_dir
+        self.poll_s = poll_s
+        # ingest coalescing under backlog (see IngestWorker); 1 = off
+        self.coalesce_batches = coalesce_batches
+        self.coalesce_target = coalesce_target
+        # exact duplicate-edge pre-aggregation before dispatch (see
+        # worker.preaggregate_edges); off by default
+        self.dedup = bool(dedup)
+        self._handles: dict[str, TenantRuntime] = {}
+        self._started = False
+        self._lock = threading.Lock()
+        self._hub_collector = None
+
+    # --------------------------------------------------------------- telemetry
+    def _collect_hub(self) -> None:
+        """Hub collector (runs on every scrape/state): refresh per-tenant
+        gauges from the authoritative snapshot dicts."""
+        hub = get_hub()
+        backend = self.backend.name
+        for h in self.handles():
+            try:
+                snap = h.worker.metrics_snapshot()
+            except Exception:
+                continue
+            labels = {"tenant": h.tenant_id, "backend": backend}
+            hub.gauge("repro_queue_depth",
+                      "batches waiting in the bounded ingest queue",
+                      **labels).set(snap.get("queue_depth") or 0)
+            hub.gauge("repro_epoch", "published snapshot epoch",
+                      **labels).set(snap.get("epoch") or 0)
+            hub.gauge("repro_ingest_edges_per_s",
+                      "recent ingest rate (EWMA)",
+                      **labels).set(snap.get("edges_per_s_ewma") or 0.0)
+            hub.counter("repro_queue_dropped_edges_total",
+                        "edges dropped by backpressure", **labels
+                        ).set(snap.get("dropped_edges") or 0)
+
+    # ------------------------------------------------------------ composition
+    def _tenant_dir(self, base: str | None, tenant) -> str | None:
+        if base is None:
+            return None
+        # tenant ids contain '/'; flatten for one directory per tenant
+        return os.path.join(base, tenant.key.tenant_id.replace("/", "_"))
+
+    def attach(self, tenant, *, pump: bool = True,
+               max_batches: int | None = None, throttle_s: float = 0.0,
+               publish_policy: str | None = None,
+               restore: bool = False, on_publish=None) -> TenantRuntime:
+        """Register a tenant: build its queue, worker and (optionally) pump.
+
+        ``restore=True`` loads the latest checkpoint for this tenant from
+        ``checkpoint_dir`` before the worker is built, so the pump resumes
+        from the checkpointed stream offset (crash recovery).
+        """
+        with self._lock:
+            if self._started:
+                raise RuntimeError("attach() before start()")
+            if tenant.key.tenant_id in self._handles:
+                return self._handles[tenant.key.tenant_id]
+        ckpt_dir = self._tenant_dir(self.checkpoint_dir, tenant)
+        reservoir = (Reservoir(self.reservoir_k,
+                               seed=tenant.key.seed ^ 0xC0FFEE)
+                     if self.reservoir_k else None)
+        if restore:
+            if not ckpt_dir:
+                raise ValueError("restore=True requires checkpoint_dir")
+            # restore runs ONCE, here, for every backend: the thread worker
+            # shares this state directly
+            restore_worker_state(tenant, ckpt_dir, reservoir)
+        spill_dir = None
+        if self.backpressure == SPILL:
+            if not self.spill_dir:
+                raise ValueError("spill backpressure requires spill_dir")
+            spill_dir = self._tenant_dir(self.spill_dir, tenant)
+        queue = BoundedEdgeQueue(self.queue_capacity, self.backpressure,
+                                 spill_dir=spill_dir)
+        worker = self.backend.make_worker(
+            tenant, queue, publish_policy or self.publish_policy,
+            reservoir=reservoir, checkpoint_dir=ckpt_dir,
+            checkpoint_every=self.checkpoint_every, on_publish=on_publish,
+            poll_s=self.poll_s, coalesce_batches=self.coalesce_batches,
+            coalesce_target=self.coalesce_target,
+            queue_capacity=self.queue_capacity, dedup=self.dedup)
+        pump_thread = (StreamPump(tenant.stream, queue,
+                                  start_offset=tenant.offset,
+                                  max_batches=max_batches,
+                                  throttle_s=throttle_s)
+                       if pump else None)
+        handle = TenantRuntime(tenant, queue, worker, pump_thread)
+        with self._lock:
+            # re-check under the lock (mirrors SketchRegistry.open): a
+            # racing attach of the same tenant must not orphan a handle
+            # whose worker would never be started
+            existing = self._handles.get(tenant.key.tenant_id)
+            if existing is not None:
+                return existing
+            self._handles[tenant.key.tenant_id] = handle
+        return handle
+
+    def handles(self) -> list[TenantRuntime]:
+        with self._lock:
+            return list(self._handles.values())
+
+    # -------------------------------------------------------------- lifecycle
+    def start(self, pumps: bool = True) -> None:
+        """Start every worker (and, by default, every pump).
+
+        ``pumps=False`` is the staged start: workers come up first, the
+        caller can ``wait_ready()``, then ``start_pumps()`` — the ingest
+        measurement uses this to keep start-up off the ingest clock.
+        """
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
+        if self._hub_collector is None:
+            self._hub_collector = self._collect_hub
+            get_hub().add_collector(self._hub_collector)
+        for h in self.handles():
+            h.worker.start()
+        if pumps:
+            self.start_pumps()
+
+    def start_pumps(self) -> None:
+        for h in self.handles():
+            if h.pump is not None and h.pump.ident is None:  # not yet started
+                h.pump.start()
+
+    def wait_ready(self, timeout: float = 300.0) -> bool:
+        """Block until every worker is ready to ingest (thread workers are
+        born ready)."""
+        deadline = time.monotonic() + timeout
+        return all(
+            h.worker.wait_ready(timeout=max(deadline - time.monotonic(),
+                                            0.01))
+            for h in self.handles())
+
+    def join_pumps(self, timeout: float = 300.0) -> bool:
+        """Wait until every pump has offered its whole stream."""
+        deadline = time.monotonic() + timeout
+        for h in self.handles():
+            if h.pump is not None:
+                h.pump.join(timeout=max(deadline - time.monotonic(), 0.01))
+        return all(h.pump is None or h.pump.done for h in self.handles())
+
+    def stop(self, drain: bool = True, timeout: float = 300.0,
+             raise_on_failure: bool = True) -> dict:
+        """Stop everything; with ``drain`` the queues are consumed to empty,
+        a final epoch is published and a final checkpoint written.  Returns
+        the final per-tenant report (metrics + conservation).
+
+        If any worker is in the ``failed`` state after the join, raises
+        ``WorkerFailure`` carrying each original exception + traceback (the
+        report rides along on the exception) — a dead worker must surface
+        at the drain call site, not only via ``health()`` polling.  Pass
+        ``raise_on_failure=False`` to get the report unconditionally.
+        """
+        for h in self.handles():
+            if h.pump is not None:
+                h.pump.request_stop()
+        deadline = time.monotonic() + timeout
+        for h in self.handles():
+            if h.pump is not None and h.pump.is_alive():
+                h.pump.join(timeout=max(deadline - time.monotonic(), 0.01))
+        for h in self.handles():
+            h.worker.request_stop(drain=drain)
+        # release backend-owned transport resources BEFORE joining
+        self.backend.shutdown()
+        for h in self.handles():
+            if h.worker.is_alive():
+                h.worker.join(timeout=max(deadline - time.monotonic(), 0.01))
+            h.queue.close()
+        if self._hub_collector is not None:
+            # final refresh, then detach: a stopped runtime must not keep
+            # running collector callbacks on later scrapes
+            self._collect_hub()
+            get_hub().remove_collector(self._hub_collector)
+            self._hub_collector = None
+        report = self.report()
+        if raise_on_failure:
+            failures = [
+                {"tenant_id": h.tenant_id,
+                 "error": repr(h.worker.error) if h.worker.error else
+                 f"worker state {h.worker.state!r}",
+                 "traceback": getattr(h.worker, "error_tb", None)}
+                for h in self.handles() if h.worker.state == FAILED
+            ]
+            if failures:
+                raise WorkerFailure(failures, report)
+        return report
+
+    def kill(self) -> None:
+        """Crash-like termination: close queues, abandon in-flight work.
+
+        Pending deltas and queued batches are lost exactly as they would be
+        in a process kill; a later ``attach(restore=True)`` replays from the
+        last checkpoint."""
+        if self._hub_collector is not None:
+            get_hub().remove_collector(self._hub_collector)
+            self._hub_collector = None
+        for h in self.handles():
+            if h.pump is not None:
+                h.pump.request_stop()
+            h.worker.request_stop(drain=False)
+        self.backend.shutdown()
+        for h in self.handles():
+            if h.pump is not None and h.pump.is_alive():
+                h.pump.join(timeout=10.0)
+            if h.worker.is_alive():
+                h.worker.join(timeout=10.0)
+
+    # ---------------------------------------------------------------- reports
+    def health(self) -> dict:
+        out = {}
+        for h in self.handles():
+            w = h.worker.health()
+            w["pump_alive"] = bool(h.pump is not None and h.pump.is_alive())
+            w["pump_done"] = bool(h.pump is None or h.pump.done)
+            out[h.tenant_id] = w
+        return out
+
+    def metrics(self) -> dict:
+        return {h.tenant_id: h.worker.metrics_snapshot()
+                for h in self.handles()}
+
+    def report(self) -> dict:
+        """Final per-tenant accounting: metrics + conservation + health."""
+        out = {}
+        for h in self.handles():
+            out[h.tenant_id] = {
+                **h.worker.metrics_snapshot(),
+                **h.conservation(),
+                "pump_done": bool(h.pump is None or h.pump.done),
+            }
+        return out
+
+    def checkpoint_all(self) -> list[str]:
+        """Synchronously checkpoint every tenant (callable while running)."""
+        return [h.worker.checkpoint() for h in self.handles()]

@@ -8,9 +8,12 @@
             caching for reachability
   gates     exactness and conservation checks
   loadgen   open-loop load generator reporting QPS and p50/p99 latency
+  sharding  K hash-band shards per tenant: routed stream views, the
+            scatter/gather engine, cross-shard conservation, manifests
 
 Entry point: ``repro_torch.launch.query_serve`` (ingest + serving end to
-end).  Sharded serving is not ported yet (ROADMAP item 10b).
+end; ``--background-ingest`` and ``--shards K`` run the ingest in
+``repro_torch.runtime`` workers).
 """
 from repro_torch.serving.engine import (
     ClosureCache,
@@ -34,6 +37,20 @@ from repro_torch.serving.loadgen import (
     warm_bucket_ladder,
 )
 from repro_torch.serving.registry import SketchRegistry, Tenant, TenantKey
+from repro_torch.serving.sharding import (
+    ShardedQueryEngine,
+    ShardedSnapshot,
+    ShardedTenant,
+    ShardKey,
+    ShardStreamView,
+    attach_shards,
+    measure_sharded_ingest,
+    read_shard_manifest,
+    sharded_conservation,
+    sharded_direct_answers,
+    warm_ingest_shapes,
+    write_shard_manifest,
+)
 from repro_torch.serving.snapshot import Snapshot, SnapshotBuffer
 
 __all__ = [
@@ -57,6 +74,18 @@ __all__ = [
     "SketchRegistry",
     "Tenant",
     "TenantKey",
+    "ShardedQueryEngine",
+    "ShardedSnapshot",
+    "ShardedTenant",
+    "ShardKey",
+    "ShardStreamView",
+    "attach_shards",
+    "measure_sharded_ingest",
+    "read_shard_manifest",
+    "sharded_conservation",
+    "sharded_direct_answers",
+    "warm_ingest_shapes",
+    "write_shard_manifest",
     "Snapshot",
     "SnapshotBuffer",
 ]

@@ -13,8 +13,9 @@ of isolation for the always-on query service.  The registry owns, per tenant:
 ``launch/query_serve.py`` drives tenants by alternating ``tenant.step(n)``
 (ingest) with engine query batches against ``tenant.snapshot``; the double
 buffer keeps the queries epoch-consistent while ingest runs.  Tenants live
-on the registry's device (``"cuda"`` unless the caller names the CPU).
-Sharded tenants (``open_sharded``) are not ported yet (ROADMAP item 10b).
+on the registry's device (``"cuda"`` unless the caller names the CPU), and
+so do sharded tenants (``open_sharded``): K shards over one layout, fed by
+hash-band views of the stream (``serving/sharding.py``).
 """
 from __future__ import annotations
 
@@ -68,10 +69,6 @@ def build_sketch(name: str, budget: int, stats, depth: int, seed: int,
                           device=device), kmatrix
 
 
-_SHARDS_LATER = ("sharded tenants (serving/sharding.py, ShardPlan) are not "
-                 "ported yet: ROADMAP item 10b")
-
-
 @dataclasses.dataclass(frozen=True)
 class TenantKey:
     dataset: str
@@ -106,16 +103,22 @@ class TenantOrigin:
     shard_index: int | None = None
 
     def rebuild(self) -> "Tenant":
-        if self.n_shards is not None:
-            raise NotImplementedError(_SHARDS_LATER)
-        return SketchRegistry(**self.registry).open(
-            self.dataset, self.kind, self.budget_kb, seed=self.seed)
+        reg = SketchRegistry(**self.registry)
+        if self.n_shards is None:
+            return reg.open(self.dataset, self.kind, self.budget_kb,
+                            seed=self.seed)
+        sharded = reg.open_sharded(self.dataset, self.kind, self.budget_kb,
+                                   seed=self.seed, n_shards=self.n_shards,
+                                   shard_seed=self.shard_seed)
+        return sharded.shards[self.shard_index]
 
 
 class Tenant:
     """One registered sketch + its stream position + snapshot buffer.
 
-    ``offset``/``step`` are owned by exactly one ingest driver at a time.
+    ``offset``/``step`` are owned by exactly one ingest driver at a time:
+    either the cooperative caller of ``step()`` or (exclusively) a
+    ``repro_torch.runtime`` worker thread.
     ``snapshot`` is safe to read from any thread at any time (a reference
     swap; nothing writes to a published sketch).
     """
@@ -182,6 +185,7 @@ class SketchRegistry:
         self.sketch_backend = kmatrix_accel.sketch_backend(sketch_backend)
         self.device = str(device)
         self._tenants: dict[TenantKey, Tenant] = {}
+        self._sharded: dict = {}  # (key, n_shards, shard_seed) -> ShardedTenant
         # get-or-create must be atomic once background workers can race
         # opens: two tenants for one key would double-ingest the stream
         self._lock = threading.Lock()
@@ -230,7 +234,53 @@ class SketchRegistry:
 
     def open_sharded(self, dataset: str, kind: str, budget_kb: int,
                      seed: int = 0, *, n_shards: int, shard_seed: int = 0):
-        raise NotImplementedError(_SHARDS_LATER)
+        """Get-or-create a ``ShardedTenant``: K shard tenants over ONE layout.
+
+        The master sketch is built exactly like ``open`` would build it
+        (same stream, same bootstrap sample, same partition plan and hash
+        family) and every shard gets an ``empty_like`` clone on the
+        registry's device — that shared layout is what makes the merge of
+        the shards bit-identical to an unsharded ingest of the same stream
+        (DESIGN.md §Sharding).  Each shard's stream is a ``ShardStreamView``
+        filtering the base stream by the ``ShardPlan`` hash band of the
+        source vertex.
+        """
+        from repro_torch.core.partitioning import ShardPlan
+        from repro_torch.serving.sharding import (ShardKey, ShardStreamView,
+                                                  ShardedTenant)
+
+        key = TenantKey(dataset, kind, budget_kb, seed)
+        skey = (key, n_shards, shard_seed)
+        with self._lock:
+            if skey in self._sharded:
+                return self._sharded[skey]
+        stream = make_stream(dataset, batch_size=self.batch_size, seed=seed,
+                             scale=self.scale)
+        n_sample = max(int(self.sample_size * self.scale), 1000)
+        ssrc, sdst, sw = sample_stream(stream, n_sample, seed=seed + 1)
+        stats = vertex_stats_from_sample(ssrc, sdst, sw)
+        sketch, mod = build_sketch(kind, budget_kb * 1024, stats, self.depth,
+                                   seed, self.partitioner,
+                                   backend=self.sketch_backend,
+                                   device=self.device)
+        plan = ShardPlan(n_shards, seed=shard_seed)
+        shards = []
+        for s in range(n_shards):
+            shard_key = ShardKey(key, s, n_shards)
+            view = ShardStreamView(stream, plan, s)
+            buffer = SnapshotBuffer(mod.empty_like(sketch), mod,
+                                    tenant_id=shard_key.tenant_id, kind=kind)
+            shard = Tenant(shard_key, view, buffer, mod)
+            shard.origin = TenantOrigin(self.config(), dataset, kind,
+                                        budget_kb, seed, n_shards=n_shards,
+                                        shard_seed=shard_seed, shard_index=s)
+            shards.append(shard)
+        tenant = ShardedTenant(key, plan, shards, mod)
+        with self._lock:
+            if skey in self._sharded:  # lost the build race; first one wins
+                return self._sharded[skey]
+            self._sharded[skey] = tenant
+            return tenant
 
     def get(self, key: TenantKey) -> Tenant:
         return self._tenants[key]

@@ -2,7 +2,12 @@
 
 Vectorized Algorithm R: a whole batch is processed with one RNG draw per
 element; deterministic given (seed, stream order).  Bootstraps the kMatrix
-partitioner and draws the evaluation query set.
+partitioner, draws the evaluation query set, and keeps the per-tenant
+*online* sample inside ``repro_torch.runtime`` ingest workers — which is
+why the sampler exposes ``state_dict``/``load_state_dict`` (a restored
+checkpoint must reproduce the exact sample one uninterrupted pass draws).
+The RNG state travels as JSON in the JAX package's form, so a checkpoint
+of either package restores in the other.
 """
 from __future__ import annotations
 
@@ -55,9 +60,60 @@ class Reservoir:
         self._seen += n
 
     @property
+    def seen(self) -> int:
+        """Total non-padding edges offered so far."""
+        return self._seen
+
+    @property
     def sample(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         n = min(self._seen, self.k)
         return self._src[:n].copy(), self._dst[:n].copy(), self._w[:n].copy()
+
+    # ---------------------------------------------------------- checkpointing
+    def state_dict(self) -> dict:
+        """Copy-out of the full sampler state (arrays + RNG bit-generator).
+
+        ``src``/``dst``/``w`` are numpy (checkpoint leaves); ``rng_state``
+        is JSON-able (uint64 arrays flattened to int lists).
+        """
+        return {
+            "k": self.k,
+            "seen": int(self._seen),
+            "src": self._src.copy(),
+            "dst": self._dst.copy(),
+            "w": self._w.copy(),
+            "rng_state": _rng_state_to_jsonable(self._rng.bit_generator.state),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        if int(state["k"]) != self.k:
+            raise ValueError(
+                f"reservoir size mismatch: checkpoint k={state['k']}, "
+                f"this sampler k={self.k}")
+        self._seen = int(state["seen"])
+        self._src[:] = np.asarray(state["src"], np.int32)
+        self._dst[:] = np.asarray(state["dst"], np.int32)
+        self._w[:] = np.asarray(state["w"], np.int32)
+        self._rng.bit_generator.state = _rng_state_from_jsonable(
+            state["rng_state"])
+
+
+def _rng_state_to_jsonable(state):
+    if isinstance(state, dict):
+        return {k: _rng_state_to_jsonable(v) for k, v in state.items()}
+    if isinstance(state, np.ndarray):
+        return {"__ndarray__": state.tolist(), "dtype": str(state.dtype)}
+    if isinstance(state, np.integer):
+        return int(state)
+    return state
+
+
+def _rng_state_from_jsonable(state):
+    if isinstance(state, dict):
+        if "__ndarray__" in state:
+            return np.asarray(state["__ndarray__"], dtype=state["dtype"])
+        return {k: _rng_state_from_jsonable(v) for k, v in state.items()}
+    return state
 
 
 def sample_stream(stream, k: int, seed: int = 0,

@@ -598,3 +598,125 @@ def test_query_serve_on_card_equals_cpu(card, sketch, capsys):
     assert gates.mismatched_indices(
         [r.value for r in QueryEngine().execute(snaps[0], reqs)],
         [r.value for r in QueryEngine().execute(snaps[1], reqs)]) == []
+
+
+def test_launch_counts_stay_exact_with_two_launching_threads(card):
+    """The ingest worker and the query thread launch at once: 10,000
+    ``matrix_lookup_edges`` launches from two threads, none lost."""
+    import threading
+
+    t = SketchRegistry(depth=5, scale=0.05, device="cuda").open(
+        "cit-HepPh", "gmatrix", 256)
+    t.step(1)
+    sk = t.publish().sketch
+    q = torch.arange(64, dtype=torch.int32, device=card)
+    want = matrix_lookup_edges(sk.table, sk.hashes.a, sk.hashes.b, q, q)
+    before = matrix_lookup_edges.launches
+    outs = []
+
+    def launch(n):
+        for _ in range(n):
+            out = matrix_lookup_edges(sk.table, sk.hashes.a, sk.hashes.b, q, q)
+        outs.append(out)
+
+    threads = [threading.Thread(target=launch, args=(5000,)) for _ in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert matrix_lookup_edges.launches - before == 10_000
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.parametrize("dedup", [False, True], ids=["plain", "dedup"])
+def test_worker_staging_fence_keeps_back_to_back_dispatches_exact(card,
+                                                                  dedup):
+    """Coalesced groups go through the worker's two pinned staging slots and
+    asynchronous copies, back to back (a pre-filled queue, every batch's
+    data different): the slot refilled two groups later must wait for the
+    copy that read it, or the card would ingest the later group's rows
+    twice.  A long stall queued on the stream first keeps every copy
+    pending while the host fills the slots, so a missing or early fence
+    shows.  Counters equal one replay of the stream; the fences are the
+    buffer's CUDA events and the slots are pinned."""
+    from repro_torch.runtime import QueueItem, Runtime
+
+    reg = SketchRegistry(depth=5, scale=0.25, device="cuda")
+    t = reg.open("cit-HepPh", "kmatrix", 256)
+    items = [QueueItem.from_arrays(i, *t.stream.batch_numpy(i))
+             for i in range(t.stream.num_batches)]
+    rt = Runtime(queue_capacity=len(items) + 1, publish_policy="every:1000",
+                 reservoir_k=0, poll_s=0.01, coalesce_batches=2,
+                 coalesce_target=2 * t.stream.batch_size, dedup=dedup)
+    handle = rt.attach(t, pump=False)
+    for it in items:
+        assert handle.queue.put(it, timeout=5)
+    before = matrix_ingest_edges.launches
+    torch.cuda.synchronize()
+    # ~1 s of device time on the stream that the worker's copies join
+    # (the device's default stream, shared by both threads)
+    torch.cuda._sleep(2_000_000_000)
+    rt.start()
+    rep = rt.stop(drain=True, timeout=300)[t.key.tenant_id]
+    assert not handle.worker.is_alive() and rep["state"] == "stopped"
+    assert matrix_ingest_edges.launches - before == -(-len(items) // 2)
+    stage = [s for s in handle.worker._stage if s is not None]
+    assert len(stage) == 2 and all(c.is_pinned() for s in stage
+                                   for c in s[3])
+    replay = gates.replay_sketch(t.mod, t.mod.empty_like(t.snapshot.sketch),
+                                 t.stream, t.stream.num_batches)
+    assert gates.layout_counters_equal(t.snapshot.sketch, replay)
+    assert t.snapshot.n_edges == t.stream.spec.n_edges
+    assert rep["unaccounted_edges"] == 0
+    assert isinstance(t.buffer.dispatch_token(), torch.cuda.Event)
+
+
+@pytest.mark.parametrize("kind", ["kmatrix", "gmatrix"])
+def test_sharded_engine_on_card_equals_cpu(card, kind):
+    """Two shards on the card and on the CPU: the same counters, the sharded
+    engine's answers on the card equal to the direct ones there and to the
+    CPU engine's; each sharded closure miss is one reach_closure launch."""
+    from repro_torch.serving import ShardedQueryEngine, sharded_direct_answers
+
+    tenants = {dev: SketchRegistry(depth=5, scale=0.1, device=dev)
+               .open_sharded("cit-HepPh", kind, 256, n_shards=2)
+               for dev in ("cuda", "cpu")}
+    snaps = {}
+    for dev, st in tenants.items():
+        st.step(3)
+        snaps[dev] = st.publish()
+    for a, b in zip(snaps["cuda"].parts, snaps["cpu"].parts):
+        assert gates.layout_counters_equal(a.sketch, b.sketch)
+    reqs = _serving_requests(kind, tenants["cpu"].stream.spec.n_nodes)
+    engine = ShardedQueryEngine(QueryEngine())
+    before = reach_closure.launches
+    got = [r.value for r in engine.execute(snaps["cuda"], reqs)]
+    assert reach_closure.launches - before == \
+        engine.stats["sharded_closure_misses"] + engine.stats["closure_misses"]
+    assert gates.mismatched_indices(
+        got, sharded_direct_answers(snaps["cuda"], reqs)) == []
+    assert gates.mismatched_indices(got, [r.value for r in ShardedQueryEngine(
+        QueryEngine()).execute(snaps["cpu"], reqs)]) == []
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_background_query_serve_on_card_equals_cpu(card, shards):
+    flags = ["--scale", "0.05", "--n-requests", "400", "--background-ingest",
+             "--shards", str(shards)]
+    gpu = query_serve._run(query_serve.parse_args([*flags, "--device", "cuda"]))
+    cpu = query_serve._run(query_serve.parse_args([*flags, "--device", "cpu"]))
+    assert gpu["summary"]["device"] == "cuda"
+    for key in ("total_edges", "n_requests", "sketch_backend"):
+        assert gpu["summary"][key] == cpu["summary"][key]
+    if shards == 1:
+        assert gates.layout_counters_equal(gpu["tenant"].snapshot.sketch,
+                                           cpu["tenant"].snapshot.sketch)
+        assert gpu["summary"]["unaccounted_edges"] == 0
+    else:
+        assert gpu["summary"]["per_shard_published"] == \
+            cpu["summary"]["per_shard_published"]
+        assert gates.layout_counters_equal(
+            gpu["tenant"].merged_snapshot().sketch,
+            cpu["tenant"].merged_snapshot().sketch)

@@ -42,6 +42,7 @@ from repro_torch.kernels import (
 from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.models.recsys import fm as tfm
 from repro_torch.serving import QueryEngine, SketchRegistry, synth_requests
+from repro_torch.serving import ShardStreamView
 from repro_torch.serving import WorkloadMix
 from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
@@ -69,6 +70,31 @@ def test_port_imports_neither_jax_nor_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+# the modules of the runtime and sharding slice, copies included: each is
+# in the scan above (which covers every file of the port)
+RUNTIME_SLICE = ["obs/trace.py", "obs/profile.py", "runtime/__init__.py",
+                 "runtime/queueing.py", "runtime/policies.py",
+                 "runtime/metrics.py", "runtime/worker.py",
+                 "runtime/backend.py", "runtime/supervisor.py",
+                 "serving/sharding.py"]
+
+
+@pytest.mark.parametrize("module", RUNTIME_SLICE)
+def test_runtime_slice_modules_are_scanned(module):
+    path = REPO / "src" / "repro_torch" / module
+    assert path in PORT_FILES
+    test_port_imports_neither_jax_nor_reference(path)
+
+
+def test_only_items_12_and_13b_stay_refused_by_query_serve():
+    items = {item for _, _, item in query_serve._LATER}
+    assert items == {"12", "13b"}
+    flags = {flag for flag, _, _ in query_serve._LATER}
+    assert "--background-ingest" not in flags and "--shards" not in flags
+    assert "--runtime-backend" in flags and "--serve" in flags
+    assert "--metrics-json" in flags
+
+
 @pytest.mark.parametrize("fn", [
     KMatrix.create, KMatrixAccel.create, HashFamily.create,
     EdgeBatch.from_numpy, build_sketch, route_table_from_plan,
@@ -76,6 +102,7 @@ def test_port_imports_neither_jax_nor_reference(path):
     CountMin.create, GSketch.create, SyntheticStream.iter_from,
     tq.heavy_nodes, tfm.init_params, build_fm_cell, interop.fm_params_from_jax,
     SketchRegistry.__init__, interop.snapshot_state_from_jax,
+    ShardStreamView.batch, ShardStreamView.iter_from,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

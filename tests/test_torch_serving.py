@@ -159,16 +159,23 @@ def test_registry_defaults_and_config_equal_jax():
 
 
 def test_tenant_origin_rebuilds_the_same_layout_and_shards_wait(registry):
+    """A tenant's origin rebuilds its layout; a shard's origin (sharding is
+    ported now: nothing waits any more) rebuilds that shard of the sharded
+    tenant, over the unsharded tenant's layout."""
     t = registry.open("cit-HepPh", "kmatrix", 64, seed=4)
     again = t.origin.rebuild()
     assert again is not t and again.key == t.key
     _assert_same_state(again.snapshot.sketch, t.snapshot.sketch)
-    with pytest.raises(NotImplementedError, match="10b"):
-        registry.open_sharded("cit-HepPh", "kmatrix", 64, n_shards=2)
+    sharded = registry.open_sharded("cit-HepPh", "kmatrix", 64, seed=4,
+                                    n_shards=2)
     shard = dataclasses.replace(t.origin, n_shards=2, shard_seed=0,
-                                shard_index=0)
-    with pytest.raises(NotImplementedError, match="10b"):
-        shard.rebuild()
+                                shard_index=1)
+    assert sharded.shards[1].origin == shard
+    rebuilt = shard.rebuild()
+    assert rebuilt.key == sharded.shards[1].key and rebuilt.offset == 0
+    assert rebuilt.key.tenant_id == t.key.tenant_id + "/shard1of2"
+    _assert_same_state(rebuilt.snapshot.sketch,
+                       t.mod.empty_like(t.snapshot.sketch))
 
 
 @pytest.mark.parametrize("kind", ["kmatrix", "gmatrix"])
