@@ -102,11 +102,32 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      crash-like, restored into a new registry and drained: the merged
      front equals the replays, conservation holds, a different
      ``--shard-seed`` is refused by the manifest); the drain rate of
-     ``measure_sharded_ingest``, 5 drains at each K = 1, 2, 4; and a
+     ``measure_sharded_ingest``, 3 drains at each K = 1, 2, 4; and a
      profiled 600-request window of the sharded kMatrix run.  Each run
      also prints the engine's groups by family (the hub), each served
      batch's host time, and each request's latency split at the last
      buffer ingest, with p99 per 0.5 s window of arrivals.
+  J. The network tier: the same tenants at the same flags with ingest in
+     remote workers — ``--runtime-backend process`` (spawn children, a
+     CUDA context each; the kMatrix again with ``--publish-mode full``),
+     both with ``--shards 4 --runtime-backend process``, the kMatrix with
+     ``--runtime-backend socket`` (a self-hosted loopback child), the
+     gMatrix through a ``stream_ingest --listen`` subprocess dialled with
+     ``socket:HOST:PORT``, and the kMatrix through an in-process
+     ``WorkerServer`` over loopback TCP, whose session's launches this
+     process counts: ``matrix_ingest_edges`` once per buffer ingest, no
+     rectangle entry point.  Each run has phase I's gates (fronts equal
+     to phase H's replays, conservation, 1,000 answers equal to the
+     direct ones) and shows every worker on the card while it is live
+     (its pid among ``nvidia-smi``'s compute apps, or, where the sandbox
+     is listed as one process, the card's memory grown by a CUDA context
+     per worker) with its spawn-to-ready time.  Then ``query_serve
+     --serve 127.0.0.1:0 --connections 4`` for each tenant (QPS, p50/p99,
+     shed and answer epoch beside phase H's; 1,000 answers over the wire
+     equal to the direct ones on the final snapshot), 3 drains at each
+     K = 1, 2, 4 through ``measure_sharded_ingest(backend="process")``,
+     and the hub's publish bytes, delta against full.  No kernel may be
+     built during the phase: the parent built them, the workers load them.
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
      P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
@@ -128,7 +149,8 @@ Phases (any failure exits nonzero without the final ``ok`` line):
 The last lines are one ``{"kernels": [...]}`` JSON object and then
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is summed
 over the paths that run it, each path counted from zero just before it
-runs (``launches_by_path``).
+runs (``launches_by_path``), in this process only: the launches of phase
+J's worker child processes and listen host are not counted there.
 """
 from __future__ import annotations
 
@@ -181,7 +203,12 @@ STREAM_EDGES = 421_578  # cit-HepPh, weight > 0
 RESUME_EVERY = 4  # batches between checkpoints of the resumed shards
 RESUME_OFFSETS = (12, 20, 28, 36)  # per shard, multiples of RESUME_EVERY
 DRAIN_SHARDS = (1, 2, 4)
-DRAIN_REPEATS = 5  # drains at each K, for the spread
+DRAIN_REPEATS = 3  # thread drains at each K, for the spread
+PROCESS_DRAINS = 3  # process-backend drains at each K (phase J)
+# least card memory a worker process's CUDA context takes (a context on an
+# H100 holds ~500 MiB), the evidence that each worker runs on the card
+# where nvidia-smi cannot list the sandbox's own pids
+CONTEXT_MIB = 250
 LATENCY_BIN_S = 0.5  # width of the arrival windows of the latency timeline
 
 
@@ -1449,6 +1476,317 @@ def phase_background(smoke, card, serve):
     return {"runs": out, "launches": launches}
 
 
+# ------------------------------------------------------------ phase J --
+
+def _worker_watch():
+    """Note every remote worker handle made (process and socket), when it
+    started and when its ``ready`` frame arrived; returns the box and the
+    function that restores the patched methods."""
+    from repro_torch.net import backend as net_backend
+    from repro_torch.runtime import backend as rt_backend
+
+    box = {"workers": [], "ready_at": {}}
+    classes = (rt_backend.ProcessWorker, net_backend.SocketWorker)
+    starts = [cls.start for cls in classes]
+    dispatches = (rt_backend.dispatch_parent_message,
+                  net_backend.dispatch_parent_message)
+
+    def started(orig):
+        def start(self):
+            box["workers"].append((self, time.perf_counter()))
+            return orig(self)
+        return start
+
+    def dispatch(h, msg):
+        if msg[0] == "ready":
+            box["ready_at"].setdefault(id(h), time.perf_counter())
+        return dispatches[0](h, msg)
+
+    for cls, orig in zip(classes, starts):
+        cls.start = started(orig)
+    rt_backend.dispatch_parent_message = dispatch
+    net_backend.dispatch_parent_message = dispatch
+
+    def restore():
+        for cls, orig in zip(classes, starts):
+            cls.start = orig
+        rt_backend.dispatch_parent_message = dispatches[0]
+        net_backend.dispatch_parent_message = dispatches[1]
+
+    return box, restore
+
+
+def compute_apps() -> dict:
+    """``{pid: used_memory in MiB}`` of the processes ``nvidia-smi`` lists
+    on the card.  In a sandbox with a PID namespace of its own the card
+    lists the whole sandbox as one process, under a pid of the host's."""
+    proc = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    apps = {}
+    for line in proc.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = int(mem.split()[0]) if mem.split() else 0
+    return apps
+
+
+def _while_loaded():
+    """Read the card's compute apps at the end of each run's load window,
+    while the run's workers are still alive (the runtime stops them after
+    the load returns); returns the box and the restore function."""
+    from repro_torch.launch import query_serve
+
+    box, orig = {"apps": []}, query_serve.run_load
+
+    def run_load(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        box["apps"].append(compute_apps())
+        return out
+
+    query_serve.run_load = run_load
+
+    def restore():
+        query_serve.run_load = orig
+
+    return box, restore
+
+
+def _remote_run(smoke, label, flags, extra_pids=()):
+    """One background or sharded query_serve run with remote workers:
+    phase I's run and launch checks (the parent's launches: the warm
+    batches, the closures, the lookups), each worker on the card while the
+    run is live — its pid among the card's compute apps, or, where the
+    card lists the sandbox as one process, the card's compute memory grown
+    by at least a CUDA context per worker — and each worker's
+    spawn-to-ready time."""
+    from repro_torch.obs import get_hub
+
+    before = compute_apps()  # this process only: no worker is up yet
+    watch, restore_watch = _worker_watch()
+    apps, restore_apps = _while_loaded()
+    try:
+        run = _bg_run(smoke, label, flags)
+    finally:
+        restore_watch()
+        restore_apps()
+    seen = apps["apps"][-1] if apps["apps"] else {}
+    workers = []
+    for w, t_start in watch["workers"]:
+        proc = getattr(w, "process", None)
+        ready = watch["ready_at"].get(id(w))
+        workers.append({"pid": proc.pid if proc is not None else None,
+                        "spawn_to_ready_s": (None if ready is None
+                                             else ready - t_start)})
+    pids = [w["pid"] for w in workers if w["pid"] is not None]
+    pids += list(extra_pids)
+    grown = sum(seen.values()) - sum(before.values())
+    print(f"  {label}: workers {json.dumps(workers)}; the card's compute "
+          f"apps (pid: MiB) before the run {json.dumps(before)}, while live "
+          f"{json.dumps(seen)}: {grown} MiB more for {len(pids)} worker "
+          "processes")
+    listed = bool(pids) and all(pid in seen for pid in pids)
+    smoke.check(listed or (set(seen) == set(before)
+                           and grown >= CONTEXT_MIB * len(pids) > 0),
+                f"{label}: every worker process ({pids}) is on the card: "
+                + (f"listed ({[seen.get(pid) for pid in pids]} MiB)" if listed
+                   else f"the sandbox is one listed process, whose memory "
+                   f"grew {grown} MiB >= {CONTEXT_MIB} MiB per worker"))
+    smoke.check(all(w["spawn_to_ready_s"] is not None for w in workers),
+                f"{label}: every worker sent ready")
+    publish_bytes = sum(v for n, _, v in get_hub().state()["counters"]
+                        if n == "publish_bytes")
+    return {**run, "workers": workers, "apps": seen,
+            "publish_bytes": publish_bytes}
+
+
+def _listen_host():
+    """A ``stream_ingest --listen`` worker host subprocess on the card;
+    returns it and its address."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    host = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.stream_ingest",
+         "--listen", "127.0.0.1:0", "--max-sessions", "1",
+         "--idle-timeout-s", "300"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    line = json.loads(host.stdout.readline())
+    return host, line["listening"]
+
+
+def _wire_answers(smoke, label, run):
+    """The first SERVE_CHECKED requests asked over the wire of a query
+    server on the run's final snapshot, against the direct answers."""
+    from repro_torch.net.query_server import QueryClient, QueryServer
+    from repro_torch.serving import gates
+    from repro_torch.serving import engine as eng
+
+    final, reqs = run["tenant"].snapshot, run["requests"][:SERVE_CHECKED]
+    server = QueryServer(run["engine"], lambda: final).start()
+    try:
+        client = QueryClient(server.address)
+        values, epoch = client.query(reqs, timeout_s=120)
+        client.close()
+    finally:
+        server.stop()
+    smoke.check(epoch == final.epoch and gates.mismatched_indices(
+        values, eng.direct_answers(final, reqs)) == [],
+        f"{label}: {len(reqs)} answers over the wire at epoch {epoch} == "
+        "the direct answers on the final snapshot")
+
+
+def _serve_net(smoke, kind, phase_h):
+    """``query_serve --background-ingest --serve 127.0.0.1:0 --connections
+    4``: the front-end's line beside phase H's in-process numbers, and the
+    answers over the wire."""
+    torch = smoke.torch
+    from repro_torch.launch import query_serve
+
+    label = f"serve {kind}"
+    reset_launches()
+    t0 = time.perf_counter()
+    run = query_serve._run(query_serve.parse_args(
+        [*BG_FLAGS, "--sketch", kind, "--serve", "127.0.0.1:0",
+         "--connections", "4"]))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    s, h = run["summary"], phase_h["summary"]
+    row = {k: s[k] for k in ("achieved_qps", "p50_ms", "p99_ms", "shed",
+                             "shed_rate", "aborted", "answer_epoch",
+                             "final_epoch")}
+    row["server_stats"] = s["server_stats"]
+    print(f"  {label}: {json.dumps(row)} (phase H in process: "
+          f"achieved_qps={h['achieved_qps']} p50_ms={h['p50_ms']} "
+          f"p99_ms={h['p99_ms']}); launches {json.dumps(launches)} "
+          f"({time.perf_counter() - t0:.1f}s run)")
+    smoke.check(s["unaccounted_edges"] == 0 and s["aborted"] == 0
+                and s["total_edges"] == STREAM_EDGES
+                and s["server_stats"]["offered_requests"]
+                == s["server_stats"]["admitted_requests"]
+                + s["server_stats"]["shed_overload"]
+                + s["server_stats"]["shed_rate_limited"]
+                + s["server_stats"]["shed_too_large"],
+                f"{label}: conservation, no aborted request, the admission "
+                "ledger balances")
+    _wire_answers(smoke, label, run)
+    return {**run, "launches": launches}
+
+
+def _process_drains(smoke):
+    """``measure_sharded_ingest(backend="process")`` PROCESS_DRAINS times
+    at each K: the drain over K spawn children, each in its own
+    interpreter with its own CUDA context."""
+    from repro_torch.serving import SketchRegistry, measure_sharded_ingest
+
+    rows = []
+    for k in DRAIN_SHARDS:
+        rates = []
+        for rep in range(PROCESS_DRAINS):
+            st = SketchRegistry(depth=5, scale=1.0, device="cuda").open_sharded(
+                "cit-HepPh", "kmatrix", 256, n_shards=k)
+            out = measure_sharded_ingest(st, backend="process")
+            print(f"  process drain K={k} #{rep}: {out['edges_per_s']} "
+                  f"edges/s over {out['wall_s']} s, "
+                  f"conserved={out['conserved']}")
+            smoke.check(out["conserved"]
+                        and out["queued_edges"] == STREAM_EDGES,
+                        f"process drain K={k} #{rep}: every queued edge "
+                        "published")
+            rates.append(out["edges_per_s"])
+            rows.append(out)
+        print(f"  process drain K={k} over {PROCESS_DRAINS} drains: edges/s "
+              f"min {min(rates)} median {statistics.median(rates)} max "
+              f"{max(rates)}")
+    return rows
+
+
+def phase_network(smoke, card, serve, bg):
+    """The network tier on the card: the process and socket backends, a
+    ``--listen`` worker host, an in-process worker host carrying the launch
+    gate, the TCP front-end, the drain by backend, and the publish bytes,
+    delta against full; gated against phase H's replays."""
+    from repro_torch.kernels import build
+    from repro_torch.net.ingest_server import WorkerServer
+
+    t0 = time.perf_counter()
+    built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+    out, launches = {}, {}
+
+    def gated(label, flags, sharded=False, kind="kmatrix", **kw):
+        run = _remote_run(smoke, label, ["--sketch", kind, *flags], **kw)
+        gate = _sharded_gates if sharded else _bg_gates
+        gate(smoke, label, run, serve[kind]["replays"])
+        launches[label] = run["launches"]
+        out[label] = {"summary": run["summary"], "workers": run["workers"],
+                      "publish_bytes": run["publish_bytes"]}
+        return run
+
+    for kind in SERVE_KINDS:
+        gated(f"process {kind}", ["--runtime-backend", "process"], kind=kind)
+    full = gated("process kmatrix full", ["--runtime-backend", "process",
+                                          "--publish-mode", "full"])
+    delta = out["process kmatrix"]["publish_bytes"]
+    print(f"  publish bytes adopted, process kmatrix: delta {delta}, full "
+          f"{full['publish_bytes']} ({full['publish_bytes'] / max(delta, 1):.2f}x)")
+    for kind in SERVE_KINDS:
+        gated(f"process sharded {kind}", ["--runtime-backend", "process",
+                                          "--shards", "4"],
+              sharded=True, kind=kind)
+    gated("socket kmatrix", ["--runtime-backend", "socket"])
+
+    host, address = _listen_host()
+    try:
+        gated("listen gmatrix", ["--runtime-backend", f"socket:{address}"],
+              kind="gmatrix", extra_pids=(host.pid,))
+        rest, err = host.communicate(timeout=120)
+    finally:
+        if host.poll() is None:
+            host.kill()
+            host.communicate()
+    print(f"  listen host (pid {host.pid}): exit {host.returncode}, "
+          f"{rest.strip().splitlines()[-1] if rest.strip() else err[-300:]}")
+    smoke.check(host.returncode == 0, "listen host: one stopped session, "
+                "exit 0")
+
+    # the launch gate over real loopback TCP: an in-process worker host,
+    # whose launches and buffer ingests this process counts
+    server = WorkerServer("127.0.0.1", 0)
+    import threading
+
+    thread = threading.Thread(target=server.serve_forever, kwargs=dict(
+        max_sessions=1, idle_timeout_s=300), daemon=True)
+    thread.start()
+    try:
+        label = "worker host in process"
+        run = _bg_run(smoke, label, ["--sketch", "kmatrix", "--runtime-backend",
+                                     "socket:{}:{}".format(*server.address)])
+        _bg_gates(smoke, label, run, serve["kmatrix"]["replays"])
+        thread.join(300)
+        smoke.check(server.session_results == ["stopped"]
+                    and run["ingests"] > 4,
+                    f"{label}: one stopped session; its buffer ingests "
+                    f"({run['ingests']}, the parent's 4 warm batches "
+                    "included) each launched matrix_ingest_edges")
+        launches[label] = run["launches"]
+        out[label] = {"summary": run["summary"]}
+    finally:
+        server.stop()
+
+    for kind in SERVE_KINDS:
+        run = _serve_net(smoke, kind, serve[kind])
+        launches[f"serve {kind}"] = run["launches"]
+        out[f"serve {kind}"] = run["summary"]
+    out["process drains"] = _process_drains(smoke)
+    now = sorted(p.name for p in build.BUILD_DIR.iterdir())
+    smoke.check(now == built, f"no kernel was built during phase J (build "
+                f"directory {len(built)} entries before, {len(now)} after)")
+    print(f"  {card}; phase J {time.perf_counter() - t0:.1f}s")
+    return {"runs": out, "launches": launches}
+
+
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
     torch = smoke.torch
     from repro_torch.kernels import matrix_ingest, matrix_ingest_plain
@@ -1886,6 +2224,9 @@ def _summary(name, source, replaces, launches, main, rows):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches,
+            "launches_counted_in": "this process only: the kernels that "
+            "phase J's worker child processes and listen host launch are "
+            "not counted here",
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "exact": all(r["max_abs_err"] == 0 for r in rows),
             **{k: main[k] for k in (
@@ -1899,7 +2240,7 @@ def _summary(name, source, replaces, launches, main, rows):
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg):
+def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net):
     torch = smoke.torch
     import numpy as np
 
@@ -2033,7 +2374,8 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg):
     # one serve_p99 forward: its three bags
     p99 = summed([r for k, r in bag_rows.items() if k.startswith("serve_p99")])
     served = {**{f"serve {k}": v["launches"] for k, v in serve.items()},
-              **bg["launches"]}
+              **bg["launches"],
+              **{f"network {k}": v for k, v in net["launches"].items()}}
     by_path = {"kmatrix": sl["launches"],
                **{k: v for k, v in cmp["launches"].items()},
                "fm": fm["launches"], **served}
@@ -2112,10 +2454,12 @@ def main() -> int:
              if card else None)
     bg = (smoke.phase("I. background and sharded serving", phase_background,
                       smoke, card, serve) if serve else None)
+    net = (smoke.phase("J. the network tier", phase_network, smoke, card,
+                       serve, bg) if bg else None)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
-                           cmp, reach, fm, serve, bg)
+                           cmp, reach, fm, serve, bg, net)
                if reach is not None and fm is not None and serve is not None
-               and bg is not None else None)
+               and bg is not None and net is not None else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

@@ -21,6 +21,13 @@ input; ``snapshot_state_to_jax`` gives the port's ``state()`` back in
 leaves, which the JAX package loads into sketch templates of its own (as
 its checkpoint store restores leaves keyed the same way).
 
+``tree_leaves`` / ``tree_unflatten`` carry a sketch (or a nest of them) as
+the flat leaf list of ``jax.tree_util.tree_leaves``: the data fields of
+each dataclass in declaration order, recursively, tuples and lists in
+order, dict values by sorted key, ``None`` skipped; numpy arrays in the JAX
+package's dtypes.  The process and socket backends ship sketches so, and a
+JAX peer rebuilds them with ``tree_unflatten`` of its own.
+
 ``fm_params_from_jax`` does the same for the FM: the JAX package's params
 dict (``emb``, ``lin``, ``bias``) as numpy arrays becomes the port's ``FM``.
 """
@@ -76,6 +83,86 @@ def export_state(sk) -> tuple[dict[str, np.ndarray], dict]:
     static: dict = {"__type__": type(sk).__name__}
     _walk(sk, "", leaves, static)
     return leaves, static
+
+
+def _leaf_numpy(x, dtype) -> np.ndarray:
+    # a copy: a CPU tensor's .numpy() would share the tensor's storage
+    if isinstance(x, torch.Tensor):
+        arr = x.detach().to("cpu", copy=True).numpy()
+    else:
+        arr = np.array(x)
+    return arr.astype(dtype) if dtype is not None else arr
+
+
+def _flatten(obj, out: list, dtype) -> None:
+    if obj is None:
+        return
+    if isinstance(obj, (tuple, list)):
+        for x in obj:
+            _flatten(x, out, dtype)
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            _flatten(obj[k], out, dtype)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        dtype = np.uint32 if isinstance(obj, HashFamily) else None
+        for f in dataclasses.fields(obj):
+            if not is_static(f):
+                _flatten(getattr(obj, f.name), out, dtype)
+    else:
+        out.append(_leaf_numpy(obj, dtype))
+
+
+def tree_leaves(tree) -> list[np.ndarray]:
+    """The leaves of ``tree`` in ``jax.tree_util.tree_leaves`` order, as
+    numpy copies in the JAX package's dtypes (hash parameters uint32).
+    Reading a CUDA tensor synchronises with the stream that writes it."""
+    out: list[np.ndarray] = []
+    _flatten(tree, out, None)
+    return out
+
+
+def _unflatten(obj, leaves, device, int64: bool):
+    if obj is None:
+        return None
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_unflatten(x, leaves, device, int64) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _unflatten(obj[k], leaves, device, int64)
+                for k in sorted(obj)}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        int64 = isinstance(obj, HashFamily)
+        return dataclasses.replace(obj, **{
+            f.name: _unflatten(getattr(obj, f.name), leaves, device, int64)
+            for f in dataclasses.fields(obj) if not is_static(f)})
+    try:
+        leaf = next(leaves)
+    except StopIteration:
+        raise ValueError("too few leaves for the template") from None
+    arr = np.asarray(leaf)
+    if int64:
+        arr = arr.astype(np.int64)
+    if not isinstance(obj, torch.Tensor):
+        return torch.as_tensor(np.array(arr), device=device)
+    if tuple(arr.shape) != tuple(obj.shape):
+        raise ValueError(f"leaf of shape {arr.shape} where the template "
+                         f"holds {tuple(obj.shape)}")
+    out = torch.as_tensor(np.array(arr), device=device or obj.device)
+    if out.dtype != obj.dtype:
+        raise ValueError(f"leaf of dtype {arr.dtype} where the template "
+                         f"holds {obj.dtype}")
+    return out
+
+
+def tree_unflatten(template, leaves, *, device=None):
+    """``template``'s structure (and static fields) holding ``leaves``, the
+    inverse of :func:`tree_leaves`: fresh tensors on ``device`` (default:
+    each template tensor's own).  Raises on a leaf count, shape or dtype
+    that does not fit the template."""
+    it = iter(leaves)
+    out = _unflatten(template, it, device, False)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
 
 
 def _build(cls, prefix: str, leaves: dict, static: dict, used: set, device):

@@ -20,23 +20,38 @@ JAX driver's keys plus ``device``.  Three ingest modes:
       one.  SIGTERM/SIGINT drain gracefully (final epoch and checkpoint)
       before exit.
 
+  --runtime-backend process | socket[:HOST:PORT,...]   (with
+      --background-ingest) each ingest worker runs in a spawn child that
+      owns its sketch (with its own CUDA context on the card), or across
+      TCP: a self-hosted loopback child, or ``stream_ingest --listen``
+      worker hosts.  Published epochs ship back into this process's
+      snapshot buffer (``--publish-mode delta`` ships per-epoch deltas,
+      ``full`` whole fronts), so queries serve locally.
+
   --shards K              (with --background-ingest) K hash-band shards of
       one tenant: one worker and queue per shard, scatter/gather queries
       through ``ShardedQueryEngine``, a shard manifest beside the per-shard
       checkpoints, and a cross-shard conservation verdict (exit 1 if it
       fails).  The shards share the run's device: K is logical.
 
+  --serve HOST:PORT       (with --background-ingest) queries arrive over
+      TCP at a ``QueryServer`` with admission control (``--max-inflight``,
+      ``--tenant-qps``, ``--auth-token``), loaded by ``NetLoadGen`` over
+      ``--connections`` client connections; ``--n-requests 0`` serves until
+      signalled.  The summary adds the shed accounting, the answer epoch
+      and the server's admission ledger.
+
   python -m repro_torch.launch.query_serve --dataset cit-HepPh \
       --sketch kmatrix --budget-kb 256 --qps 2000 --n-requests 8000 \
-      [--scale 0.25] [--device cuda] [--background-ingest [--shards 4]]
+      [--scale 0.25] [--device cuda] [--background-ingest [--shards 4]
+      [--runtime-backend process] [--serve 127.0.0.1:0]]
 
 The run is on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; without a card and without ``--device cpu`` it
-exits with an error.  A worker that fails (a CUDA error included) ends the
-run with ``WorkerFailure`` and a nonzero exit.  The JAX driver's network
-front-end and process/socket runtime backends (ROADMAP item 12) and its
-metrics dump (13b) are not ported yet: their flags exit with an error
-naming the item.
+exits with an error, and remote workers run on the same device.  A worker
+that fails (a CUDA error included) ends the run with ``WorkerFailure`` and
+a nonzero exit.  ``--metrics-json PATH`` dumps the metrics hub to PATH
+every ``--metrics-interval-s``.
 """
 from __future__ import annotations
 
@@ -48,7 +63,7 @@ import threading
 import time
 from typing import Callable
 
-from repro_torch.launch.stream_ingest import require_device
+from repro_torch.launch.stream_ingest import backend_arg, require_device
 from repro_torch.serving import (
     OpenLoopLoadGen,
     QueryEngine,
@@ -59,19 +74,6 @@ from repro_torch.serving import (
     warm_bucket_ladder,
 )
 from repro_torch.serving.registry import SKETCHES
-
-# flags of the JAX driver that belong to parts not ported yet: (flag, the
-# test that it was given, the ROADMAP item that ports it)
-_LATER = [
-    ("--runtime-backend", lambda a: a.runtime_backend != "thread", "12"),
-    ("--serve", lambda a: bool(a.serve), "12"),
-    ("--connections", lambda a: a.connections != 4, "12"),
-    ("--max-inflight", lambda a: a.max_inflight != 4096, "12"),
-    ("--tenant-qps", lambda a: a.tenant_qps != 0.0, "12"),
-    ("--auth-token", lambda a: bool(a.auth_token), "12"),
-    ("--metrics-json", lambda a: bool(a.metrics_json), "13b"),
-    ("--metrics-interval-s", lambda a: a.metrics_interval_s != 1.0, "13b"),
-]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -109,10 +111,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "queries run concurrently")
     ap.add_argument("--runtime-backend", default="thread",
                     help="execution backend for ingest workers: thread "
-                         "(process and socket are not ported yet)")
+                         "(in-process), process (spawn children owning "
+                         "their sketches), socket (self-hosted loopback "
+                         "TCP workers) or socket:HOST:PORT[,HOST:PORT...] "
+                         "(dial stream_ingest --listen worker hosts)")
     ap.add_argument("--publish-mode", default="delta",
                     choices=["delta", "full"],
-                    help="snapshot publication of a remote backend; the "
+                    help="remote-backend snapshot publication: 'delta' "
+                         "ships only the per-epoch sketch delta, "
+                         "sparse-encoded; 'full' ships whole fronts; the "
                          "thread backend publishes by reference and "
                          "ignores it")
     ap.add_argument("--shards", type=int, default=1,
@@ -140,33 +147,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ingest-dedup", action="store_true",
                     help="pre-aggregate duplicate (src, dst) rows on the "
                          "host before each coalesced ingest dispatch")
+    ap.add_argument("--no-donate", action="store_true",
+                    help="the JAX driver's donation switch; refused: the "
+                         "port has no buffer donation")
+    # ---- network front-end (repro_torch.net) ----
+    ap.add_argument("--serve", default="", metavar="HOST:PORT",
+                    help="serve queries over TCP with admission control; "
+                         "measurement runs through --connections real "
+                         "client connections (requires "
+                         "--background-ingest); --n-requests 0 serves "
+                         "until signalled instead")
+    ap.add_argument("--connections", type=int, default=4,
+                    help="with --serve: concurrent loadgen client "
+                         "connections")
+    ap.add_argument("--max-inflight", type=int, default=4096,
+                    help="with --serve: admission budget — requests queued "
+                         "or executing before fast-reject")
+    ap.add_argument("--tenant-qps", type=float, default=0.0,
+                    help="with --serve: per-tenant token-bucket rate limit "
+                         "(0 = off)")
+    ap.add_argument("--auth-token", default="",
+                    help="with --serve: shared connection token (default: "
+                         "$KMATRIX_NET_TOKEN); REQUIRED to serve on a "
+                         "non-loopback address")
+    # ---- telemetry exposition (repro_torch.obs) ----
+    ap.add_argument("--metrics-json", default="", metavar="PATH",
+                    help="periodically dump the merged metrics hub to PATH "
+                         "as JSON (atomic replace; same payload as the "
+                         "'metrics' wire frame)")
+    ap.add_argument("--metrics-interval-s", type=float, default=1.0,
+                    help="with --metrics-json: seconds between dumps")
     ap.add_argument("--span-log", default="", metavar="PATH",
                     help="on exit, append the bounded trace-span ring "
-                         "(ingest enqueue -> dispatch -> publish) to PATH "
-                         "as JSONL")
-    # ---- the JAX driver's other parts: refused below ----
-    later = ap.add_argument_group(
-        "not ported yet", "accepted for the JAX driver's command lines; "
-        "setting one exits with an error naming its ROADMAP item")
-    later.add_argument("--no-donate", action="store_true")
-    later.add_argument("--serve", default="", metavar="HOST:PORT")
-    later.add_argument("--connections", type=int, default=4)
-    later.add_argument("--max-inflight", type=int, default=4096)
-    later.add_argument("--tenant-qps", type=float, default=0.0)
-    later.add_argument("--auth-token", default="")
-    later.add_argument("--metrics-json", default="", metavar="PATH")
-    later.add_argument("--metrics-interval-s", type=float, default=1.0)
+                         "(ingest enqueue->adopt, query accept->reply) to "
+                         "PATH as JSONL")
     args = ap.parse_args(argv)
     _valid_backends = ("thread", "process", "socket")
     if args.runtime_backend not in _valid_backends \
             and not args.runtime_backend.startswith("socket:"):
         ap.error(f"--runtime-backend must be one of {_valid_backends} or "
                  f"socket:HOST:PORT[,...], got {args.runtime_backend!r}")
-    for flag, given, item in _LATER:
-        if given(args):
-            ap.error(f"{flag} is not ported yet (ROADMAP item {item}); "
-                     "this driver runs the cooperative and background "
-                     "(thread) modes")
     if args.no_donate:
         ap.error("--no-donate has nothing to switch off: the port's ingest "
                  "always writes in place into the snapshot buffer's private "
@@ -180,11 +200,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                              ("--backpressure",
                               args.backpressure != "block"),
                              ("--publish-policy", bool(args.publish_policy)),
+                             ("--runtime-backend",
+                              args.runtime_backend != "thread"),
                              ("--queue-capacity",
                               args.queue_capacity != 64),
-                             ("--ingest-dedup", args.ingest_dedup)]:
+                             ("--ingest-dedup", args.ingest_dedup),
+                             ("--serve", bool(args.serve))]:
             if is_set:
                 ap.error(f"{flag} requires --background-ingest")
+    if not args.serve:
+        for flag, is_set in [("--connections", args.connections != 4),
+                             ("--max-inflight", args.max_inflight != 4096),
+                             ("--tenant-qps", args.tenant_qps != 0.0),
+                             ("--auth-token", bool(args.auth_token))]:
+            if is_set:
+                ap.error(f"{flag} requires --serve")
     if args.shards < 1:
         ap.error("--shards must be >= 1")
     if args.shards > 1 and not args.background_ingest:
@@ -268,13 +298,59 @@ def live_ingest(args, tenant) -> Callable[[], None]:
     return step
 
 
-def run_load(args, engine, snapshot_fn, requests, *,
+def run_load(args, engine, snapshot_fn, requests, *, n_nodes: int = 0,
              between_batches: Callable[[], None] | None = None):
-    """Measurement phase: the in-process open loop (the JAX driver's
-    without ``--serve``).  Returns ``(report, extras)``."""
-    loadgen = OpenLoopLoadGen(target_qps=args.qps, batch_max=args.batch_max)
-    return loadgen.run(engine, snapshot_fn, requests,
-                       between_batches=between_batches), {}
+    """Measurement phase: in-process open loop, or — with ``--serve`` — a
+    TCP query server loaded over ``--connections`` real client connections.
+    Returns ``(report, net_extras)``; ``report`` quacks the same either way
+    (n_requests / achieved_qps / p50_ms / p99_ms)."""
+    if not args.serve:
+        loadgen = OpenLoopLoadGen(target_qps=args.qps,
+                                  batch_max=args.batch_max)
+        return loadgen.run(engine, snapshot_fn, requests,
+                           between_batches=between_batches), {}
+
+    from repro_torch.net import wire
+    from repro_torch.net.query_server import QueryServer
+    from repro_torch.serving.loadgen import NetLoadGen
+
+    host, port = wire.parse_hostport(args.serve)
+    try:
+        server = QueryServer(
+            engine, snapshot_fn, host=host, port=port,
+            max_inflight=args.max_inflight, batch_max=args.batch_max,
+            tenant_qps=args.tenant_qps,
+            auth_token=args.auth_token or None,
+            info={"n_nodes": n_nodes, "kind": args.sketch,
+                  "dataset": args.dataset}).start()
+    except ValueError as exc:  # non-loopback --serve without a token
+        raise SystemExit(str(exc)) from exc
+    print(json.dumps({"serving":
+                      f"{server.address[0]}:{server.address[1]}"}),
+          file=sys.stderr, flush=True)
+    try:
+        if args.n_requests <= 0:
+            # standing front-end: serve remote clients until the graceful
+            # drain handler (SIGTERM/SIGINT) exits the process
+            while True:
+                time.sleep(3600)
+        gen = NetLoadGen(target_qps=args.qps, connections=args.connections,
+                         batch_max=args.batch_max,
+                         auth_token=args.auth_token or None)
+        report = gen.run(server.address, requests)
+        stats = server.stats()
+        return report, {
+            "serve": f"{server.address[0]}:{server.address[1]}",
+            "connections": args.connections,
+            "shed": report.shed,
+            "shed_rate": round(report.shed_rate, 4),
+            "aborted": report.aborted,
+            "mean_retry_after_ms": round(report.mean_retry_after_ms, 3),
+            "answer_epoch": report.last_epoch,
+            "server_stats": stats,
+        }
+    finally:
+        server.stop()
 
 
 def cooperative_serve(args, tenant, engine, requests) -> tuple:
@@ -343,24 +419,25 @@ def _runtime(args, **kw):
         checkpoint_every=args.checkpoint_every,
         spill_dir=args.spill_dir or None,
         dedup=args.ingest_dedup,
-        # --publish-mode only chooses what a remote worker sends (item 12);
-        # the thread backend shares the front by reference, as in JAX
-        backend=args.runtime_backend,
+        backend=backend_arg(args.runtime_backend, args.publish_mode),
         **kw)
 
 
 def background_serve(args, tenant, engine, requests) -> tuple:
-    """Queries (main thread) concurrent with a runtime ingest worker (its
-    own thread, issuing on the same device stream as the queries)."""
+    """Queries (main thread, or the query server's executor) concurrent
+    with a runtime ingest worker: a thread issuing on the same device
+    stream as the queries, or a remote worker whose publishes a receive
+    thread adopts on that stream."""
     runtime = _runtime(args)
     runtime.attach(tenant, restore=args.restore)
     previous = install_graceful_drain(runtime)
     try:
         runtime.start(pumps=False)
-        runtime.wait_ready()
+        runtime.wait_ready()  # remote workers build their tenants first
         runtime.start_pumps()
         report, extras = run_load(args, engine, lambda: tenant.snapshot,
-                                  requests)
+                                  requests,
+                                  n_nodes=tenant.stream.spec.n_nodes)
         mid_metrics = runtime.metrics()[tenant.key.tenant_id]
         runtime.join_pumps()  # finish offering the stream, then drain
         final_report = runtime.stop(drain=True)
@@ -446,10 +523,10 @@ def sharded_main(args) -> dict:
     previous = install_graceful_drain(runtime)
     try:
         runtime.start(pumps=False)
-        runtime.wait_ready()
+        runtime.wait_ready()  # remote workers build their tenants first
         runtime.start_pumps()
         report, extras = run_load(args, engine, lambda: tenant.snapshot,
-                                  requests)
+                                  requests, n_nodes=n_nodes)
         mid = runtime.metrics()
         ingest_eps = sum(m["edges_per_s_ewma"] for m in mid.values())
         runtime.join_pumps()
@@ -522,9 +599,17 @@ def _run(args) -> dict:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    dumper = None
+    if args.metrics_json:
+        from repro_torch.obs import MetricsJsonDumper
+
+        dumper = MetricsJsonDumper(args.metrics_json,
+                                   interval_s=args.metrics_interval_s).start()
     try:
         _run(args)
     finally:
+        if dumper is not None:
+            dumper.stop()
         if args.span_log:
             from repro_torch.obs import get_trace_log
 

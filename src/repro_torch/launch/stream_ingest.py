@@ -13,15 +13,28 @@ of the paper's comparison, with periodic checkpoints and resume:
 Checkpoints use the JAX package's layout (``repro_torch.checkpoint.store``),
 so either driver resumes from the other's.
 
+``--runtime-backend thread|process|socket[:HOST:PORT,...]`` drives the same
+pipeline's ingest through the ``repro_torch.runtime`` worker runtime (pump,
+bounded queue, conservation verified after the drain; a remote worker owns
+its sketch and ships published epochs back).  ``--listen HOST:PORT`` turns
+the process into a standing socket-ingest worker host instead: it serves
+worker sessions for any parent (this package's or the JAX package's) whose
+runtime dials it, each on ``--device``; the other pipeline flags are
+ignored, since the tenant spec arrives in the hello frame.
+``--metrics-json PATH`` dumps the metrics hub to PATH in every mode.
+
 The run is on the card (``--device cuda``, the default) unless
 ``--device cpu`` is given; without a card and without ``--device cpu`` it
-exits with an error instead of running on the CPU.
+exits with an error instead of running on the CPU (a ``--listen`` host
+fails each session instead, and exits nonzero).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
+import threading
 import time
 
 import torch
@@ -65,8 +78,63 @@ def build_parser() -> argparse.ArgumentParser:
                          "checkpoint's stream offset")
     ap.add_argument("--eval-queries", type=int, default=10_000)
     ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (default: cuda)")
+                    help="torch device to run on (default: cuda); with "
+                         "--listen, the device of every session's tenant")
+    ap.add_argument("--ingest-dedup", action="store_true",
+                    help="runtime backends only: pre-aggregate duplicate "
+                         "(src, dst) rows on the host before each coalesced "
+                         "ingest dispatch")
+    ap.add_argument("--runtime-backend", default="inline",
+                    help="inline: this loop ingests directly (default). "
+                         "thread/process/socket[:HOST:PORT,...]: drive "
+                         "ingest through the repro_torch.runtime worker "
+                         "runtime on that execution backend (pump + bounded "
+                         "queue + conservation accounting; checkpoints use "
+                         "the runtime's worker-state schema under a "
+                         "per-tenant subdir). socket with no address "
+                         "self-hosts a loopback worker; with addresses it "
+                         "dials --listen worker hosts")
+    ap.add_argument("--publish-mode", default="delta",
+                    choices=["delta", "full"],
+                    help="remote-backend snapshot publication: 'delta' "
+                         "(default) ships only the per-epoch sketch delta, "
+                         "sparse-encoded; 'full' ships whole fronts")
+    ap.add_argument("--listen", default="", metavar="HOST:PORT",
+                    help="worker-host mode: serve socket ingest worker "
+                         "sessions at this address instead of running a "
+                         "pipeline")
+    ap.add_argument("--max-sessions", type=int, default=0,
+                    help="with --listen: exit after N completed sessions "
+                         "(0 = serve until signalled)")
+    ap.add_argument("--idle-timeout-s", type=float, default=0.0,
+                    help="with --listen: exit after this long with no live "
+                         "session (0 = wait forever)")
+    ap.add_argument("--auth-token", default="",
+                    help="shared connection token (default: "
+                         "$KMATRIX_NET_TOKEN); REQUIRED to --listen on a "
+                         "non-loopback address")
+    ap.add_argument("--metrics-json", default="", metavar="PATH",
+                    help="periodically dump the merged metrics hub to PATH "
+                         "as JSON (atomic replace; same payload as the "
+                         "'metrics' wire frame); works in every mode")
+    ap.add_argument("--metrics-interval-s", type=float, default=1.0,
+                    help="with --metrics-json: seconds between dumps")
     return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    valid = ("inline", "thread", "process", "socket")
+    if args.runtime_backend not in valid \
+            and not args.runtime_backend.startswith("socket:"):
+        ap.error(f"--runtime-backend must be one of {valid} or "
+                 f"socket:HOST:PORT[,...], got {args.runtime_backend!r}")
+    if args.ingest_dedup and args.runtime_backend == "inline" \
+            and not args.listen:
+        ap.error("--ingest-dedup requires a runtime backend "
+                 "(--runtime-backend thread/process/socket)")
+    return args
 
 
 def require_device(device: str) -> torch.device:
@@ -126,15 +194,7 @@ def inline_main(args) -> dict:
     print(f"ingest: {n_edges} edges in {dt:.2f}s "
           f"({n_edges/max(dt,1e-9)/1e6:.2f} M edges/s)")
 
-    # evaluation against exact ground truth (paper Fig. 7 protocol)
-    src, dst, w = stream.all_edges_numpy()
-    fmap = exact_edge_frequencies(src, dst, w)
-    qs, qd, _ = sample_stream(stream, args.eval_queries, seed=99)
-    true = lookup_exact(fmap, qs, qd)
-    est = mod.edge_freq(sk, torch.as_tensor(qs, device=device),
-                        torch.as_tensor(qd, device=device)).cpu()
-    # on the host, so the mean is taken in one order whatever the device
-    are = float(average_relative_error(est, torch.as_tensor(true)))
+    are = edge_are(stream, sk, mod, device, args.eval_queries)
     print(json.dumps({"sketch": args.sketch, "dataset": args.dataset,
                       "budget_kb": args.budget_kb, "ARE": round(are, 4)}))
     return {"sketch": sk, "module": mod, "stream": stream, "ARE": are,
@@ -142,8 +202,144 @@ def inline_main(args) -> dict:
             "ingest_seconds": dt}
 
 
+def edge_are(stream, sk, mod, device, n_queries: int) -> float:
+    """ARE of ``n_queries`` sampled edge-frequency queries against the
+    stream's exact frequencies (paper Fig. 7 protocol)."""
+    src, dst, w = stream.all_edges_numpy()
+    fmap = exact_edge_frequencies(src, dst, w)
+    qs, qd, _ = sample_stream(stream, n_queries, seed=99)
+    true = lookup_exact(fmap, qs, qd)
+    est = mod.edge_freq(sk, torch.as_tensor(qs, device=device),
+                        torch.as_tensor(qd, device=device)).cpu()
+    # on the host, so the mean is taken in one order whatever the device
+    return float(average_relative_error(est, torch.as_tensor(true)))
+
+
+def backend_arg(spec: str, publish_mode: str):
+    """Backend arg for ``Runtime``, honouring ``--publish-mode``.  Only the
+    remote backends publish over a transport; ``thread`` has no
+    ``publish_mode`` attribute and ignores the flag."""
+    if publish_mode == "delta":
+        return spec  # the default everywhere; spec strings stay lazy
+    from repro_torch.runtime.backend import resolve_backend
+
+    backend = resolve_backend(spec)
+    if hasattr(backend, "publish_mode"):
+        backend.publish_mode = publish_mode
+    return backend
+
+
+def runtime_main(args) -> dict:
+    """The pipeline with its ingest driven through the background ingest
+    runtime on ``--runtime-backend`` (a process or socket worker owns the
+    sketch; this process keeps the published snapshot for evaluation).
+    Prints the JAX driver's lines plus ``device`` and returns the run:
+    ``tenant``, ``report`` (the tenant's conservation report), ``ARE``."""
+    from repro_torch.runtime import Runtime
+    from repro_torch.serving import SketchRegistry
+
+    device = require_device(args.device)
+    registry = SketchRegistry(depth=args.depth, batch_size=args.batch_size,
+                              sample_size=args.sample_size, scale=args.scale,
+                              partitioner=args.partitioner,
+                              sketch_backend=args.sketch_backend or None,
+                              device=device)
+    tenant = registry.open(args.dataset, args.sketch, args.budget_kb,
+                           seed=args.seed)
+    stream = tenant.stream
+    print(f"stream: {stream.spec.name} nodes={stream.spec.n_nodes} "
+          f"edges={stream.spec.n_edges} batches={stream.num_batches} "
+          f"[runtime backend: {args.runtime_backend}]")
+    runtime = Runtime(publish_policy="drain:0", reservoir_k=0,
+                      checkpoint_dir=args.ckpt_dir or None,
+                      checkpoint_every=args.steps_per_ckpt,
+                      dedup=args.ingest_dedup,
+                      backend=backend_arg(args.runtime_backend,
+                                           args.publish_mode))
+    restore = bool(args.resume and args.ckpt_dir)
+    try:
+        runtime.attach(tenant, restore=restore)
+    except FileNotFoundError:
+        print("no checkpoint found; starting fresh")
+        runtime.attach(tenant, restore=False)
+    if restore and tenant.offset:
+        print(f"resumed from batch {tenant.offset}")
+    t0 = time.perf_counter()
+    runtime.start(pumps=False)
+    runtime.wait_ready()
+    runtime.start_pumps()
+    runtime.join_pumps()
+    report = runtime.stop(drain=True)[tenant.key.tenant_id]
+    dt = time.perf_counter() - t0
+    n_edges = report["ingested_edges"]
+    print(f"ingest: {n_edges} edges in {dt:.2f}s "
+          f"({n_edges/max(dt,1e-9)/1e6:.2f} M edges/s) "
+          f"unaccounted={report['unaccounted_edges']}")
+    if report["unaccounted_edges"]:
+        raise SystemExit("edge conservation failed after drain")
+    are = edge_are(stream, tenant.snapshot.sketch, tenant.mod, device,
+                   args.eval_queries)
+    print(json.dumps({"sketch": args.sketch, "dataset": args.dataset,
+                      "budget_kb": args.budget_kb,
+                      "runtime_backend": args.runtime_backend,
+                      "ARE": round(are, 4), "device": str(device)}))
+    return {"tenant": tenant, "report": report, "ARE": are}
+
+
+def listen_main(args) -> dict:
+    """Standing worker host: serve socket ingest sessions until signalled
+    (or until ``--max-sessions`` sessions completed, for scripted runs),
+    each session's tenant on ``--device``.  Exits 1 if a session failed
+    or was aborted."""
+    from repro_torch.net import wire
+    from repro_torch.net.ingest_server import WorkerServer
+
+    host, port = wire.parse_hostport(args.listen)
+    try:
+        server = WorkerServer(host, port, auth_token=args.auth_token or None,
+                              device=args.device)
+    except ValueError as exc:  # non-loopback bind without a token
+        raise SystemExit(str(exc)) from exc
+    print(json.dumps({"listening": f"{server.address[0]}:{server.address[1]}",
+                      "max_sessions": args.max_sessions or None,
+                      "device": server.device}), flush=True)
+
+    def _stop(signum, frame):
+        server.stop()
+
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, _stop)
+        signal.signal(signal.SIGINT, _stop)
+    server.serve_forever(
+        max_sessions=args.max_sessions or None,
+        idle_timeout_s=args.idle_timeout_s or None)
+    line = {"sessions_served": server.sessions_served,
+            "results": server.session_results, "device": server.device}
+    print(json.dumps(line), flush=True)
+    if any(str(r).startswith("aborted") or r == "failed"
+           for r in server.session_results):
+        raise SystemExit(1)
+    return line
+
+
 def main(argv=None) -> None:
-    inline_main(build_parser().parse_args(argv))
+    args = parse_args(argv)
+    dumper = None
+    if args.metrics_json:
+        from repro_torch.obs import MetricsJsonDumper
+
+        dumper = MetricsJsonDumper(args.metrics_json,
+                                   interval_s=args.metrics_interval_s).start()
+    try:
+        if args.listen:
+            listen_main(args)
+        elif args.runtime_backend != "inline":
+            runtime_main(args)
+        else:
+            inline_main(args)
+    finally:
+        if dumper is not None:
+            dumper.stop()
 
 
 if __name__ == "__main__":

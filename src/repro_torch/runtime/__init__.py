@@ -11,14 +11,22 @@ crash-safe checkpointing through ``repro_torch.checkpoint.store`` (the JAX
 on-disk layout), and live metrics (queue depth, ingest lag, edges/s,
 publish latency, epoch age).
 
-Only the thread execution backend is ported; the process and socket
-backends wait for the network tier (ROADMAP item 12).
+The worker's execution venue is an **execution backend**
+(``runtime/backend.py``): ``backend="thread"`` runs in-process worker
+threads; ``backend="process"`` runs each worker in a spawn child that owns
+its sketch (with its own CUDA context on the card) and ships epoch-stamped
+publications back into the parent's ``SnapshotBuffer``;
+``backend="socket[:HOST:PORT,...]"`` runs the same worker across TCP
+(``repro_torch.net``).
 
-Entry point: ``repro_torch.launch.query_serve --background-ingest
-[--shards K]``.
+Entry points: ``repro_torch.launch.query_serve --background-ingest
+[--shards K] [--runtime-backend process|socket[:HOST:PORT,...]]`` and
+``repro_torch.launch.stream_ingest --runtime-backend ...``.
 """
 from repro_torch.runtime.backend import (
     ExecutionBackend,
+    ProcessBackend,
+    ProcessWorker,
     ThreadBackend,
     WorkerFailure,
     resolve_backend,
@@ -52,6 +60,8 @@ from repro_torch.runtime.worker import (
 
 __all__ = [
     "ExecutionBackend",
+    "ProcessBackend",
+    "ProcessWorker",
     "ThreadBackend",
     "WorkerFailure",
     "resolve_backend",

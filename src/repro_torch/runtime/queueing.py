@@ -2,9 +2,8 @@
 
 A copy of the JAX package's ``runtime/queueing.py`` (numpy only): the port
 keeps its own so that it never imports ``repro``.  Its spill files are the
-same bytes — one columnar ``item_cols`` frame of the JAX package's wire
-codec (``net/wire.py``, schema v3) per batch — written and read by the
-frame codec below, the one part of that codec the queue needs.
+same bytes — one columnar ``item_cols`` frame of the wire codec
+(``repro_torch.net.wire``, the JAX package's schema v3) per batch.
 
 # analysis: hot-path — every queued batch flows through here; the
 # no-pickle-hot-path rule keeps serialization out of this module.
@@ -34,107 +33,13 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import struct
 import threading
 import time
 from collections import deque
 
 import numpy as np
 
-# the JAX package's wire frame header and v3 columnar item payload
-# (big-endian): magic, schema version, frame type, payload length; then
-# offset(i64) n_edges(i64) | n_src n_dst n_weight (u32) | three dtype tags
-# (8s) | trace_len(u16) | trace_id utf-8 | src, dst, weight bytes
-_MAGIC = b"KMTX"
-_WIRE_VERSION = 3
-_ITEM_COLS_TYPE = 12
-_HEADER = struct.Struct(">4sHHI")
-_ITEM_COLS = struct.Struct(">qqIII8s8s8sH")
-_COL_KINDS = frozenset("iuf")  # fixed-width int/float columns only
-
-
-class SpillFrameError(ValueError):
-    """A spill file is not one well-formed columnar item frame."""
-
-
-def _col_dtype(tag: bytes, what: str) -> np.dtype:
-    try:
-        dt = np.dtype(tag.rstrip(b"\x00").decode("ascii"))
-    except (TypeError, ValueError, UnicodeDecodeError) as exc:
-        raise SpillFrameError(
-            f"item frame carries undecodable {what} dtype {tag!r}") from exc
-    if dt.kind not in _COL_KINDS or not 1 <= dt.itemsize <= 8:
-        raise SpillFrameError(
-            f"item frame carries disallowed {what} dtype {dt.str!r}")
-    return dt
-
-
-def encode_item_frame(item) -> bytes:
-    """One ``QueueItem`` as the JAX wire codec's v3 ``item_cols`` frame
-    (columns in their native dtype)."""
-    cols = []
-    for what in ("src", "dst", "weight"):
-        a = np.ascontiguousarray(getattr(item, what))
-        if a.ndim != 1 or a.dtype.kind not in _COL_KINDS \
-                or not 1 <= a.dtype.itemsize <= 8:
-            raise SpillFrameError(
-                f"column {what} ({a.dtype.str}, shape {a.shape}) cannot be "
-                "framed: 1-D fixed-width int/float columns only")
-        cols.append(a)
-    src, dst, weight = cols
-    trace = str(item.trace_id or "").encode("utf-8")
-    if len(trace) > 0xFFFF:
-        raise SpillFrameError(f"trace_id of {len(trace)} bytes exceeds 65535")
-    length = (_ITEM_COLS.size + len(trace)
-              + src.nbytes + dst.nbytes + weight.nbytes)
-    return b"".join((
-        _HEADER.pack(_MAGIC, _WIRE_VERSION, _ITEM_COLS_TYPE, length),
-        _ITEM_COLS.pack(int(item.offset), int(item.n_edges),
-                        src.size, dst.size, weight.size,
-                        *(c.dtype.str.encode("ascii").ljust(8, b"\x00")
-                          for c in cols), len(trace)),
-        trace, src.data, dst.data, weight.data))
-
-
-def decode_item_frame(buf: bytes) -> tuple:
-    """Inverse of :func:`encode_item_frame`: ``(offset, src, dst, weight,
-    n_edges, trace_id)``, the columns views over ``buf``; loud on
-    any header, length or dtype disagreement."""
-    if len(buf) < _HEADER.size + _ITEM_COLS.size:
-        raise SpillFrameError(f"truncated item frame ({len(buf)} bytes)")
-    magic, version, ftype, length = _HEADER.unpack_from(buf)
-    if (magic, version, ftype) != (_MAGIC, _WIRE_VERSION, _ITEM_COLS_TYPE):
-        raise SpillFrameError(
-            f"not a v{_WIRE_VERSION} columnar item frame: magic {magic!r}, "
-            f"version {version}, type {ftype}")
-    body = memoryview(buf)[_HEADER.size:]
-    if len(body) != length:
-        raise SpillFrameError(f"truncated item frame: header promises "
-                              f"{length} payload bytes, got {len(body)}")
-    (offset, n_edges, n_src, n_dst, n_weight,
-     dt_src, dt_dst, dt_weight, trace_len) = _ITEM_COLS.unpack_from(body)
-    if not n_src == n_dst == n_weight:
-        raise SpillFrameError(f"item frame has ragged columns: src={n_src} "
-                              f"dst={n_dst} weight={n_weight}")
-    if not 0 <= n_edges <= n_src:
-        raise SpillFrameError(f"item frame claims {n_edges} non-padding "
-                              f"edges in {n_src}-row columns")
-    dts = [_col_dtype(t, w) for t, w in ((dt_src, "src"), (dt_dst, "dst"),
-                                         (dt_weight, "weight"))]
-    pos = _ITEM_COLS.size
-    if pos + trace_len + sum(n_src * d.itemsize for d in dts) != len(body):
-        raise SpillFrameError("item frame length disagrees with its columns")
-    try:
-        trace = bytes(body[pos:pos + trace_len]).decode("utf-8")
-    except UnicodeDecodeError as exc:
-        raise SpillFrameError("undecodable trace_id bytes") from exc
-    pos += _HEADER.size + trace_len
-    cols = []
-    for dt in dts:
-        cols.append(np.frombuffer(buf, dtype=dt, count=n_src, offset=pos))
-        pos += n_src * dt.itemsize
-    return int(offset), *cols, int(n_edges), trace
-
+from repro_torch.net import wire
 
 BLOCK = "block"
 DROP_OLDEST = "drop_oldest"
@@ -226,20 +131,18 @@ class BoundedEdgeQueue:
         path = self._spill_path(idx)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
-            f.write(encode_item_frame(item))
+            f.write(wire.encode_item_frame(item, on_wire=False))
         os.replace(tmp, path)
 
     def _spill_read(self, idx: int) -> QueueItem:
         """File I/O for claimed slot ``idx`` — called OUTSIDE the lock."""
         path = self._spill_path(idx)
-        # read into writable memory: torch refuses to alias read-only numpy
-        # columns without a warning when a batch is made from them
-        data = bytearray(os.path.getsize(path))
         with open(path, "rb") as f:
-            f.readinto(data)
-        # zero-copy: the decoded columns are views over `data`, which the
-        # QueueItem keeps alive; a torn/garbled file raises SpillFrameError
-        offset, src, dst, weight, n_edges, trace_id = decode_item_frame(data)
+            data = f.read()
+        # the decoded columns are views over the frame's payload, which the
+        # QueueItem keeps alive; a torn/garbled file raises WireError loud
+        _, offset, src, dst, weight, n_edges, trace_id = wire.decode_message(
+            data, on_wire=False)
         item = QueueItem(offset, src, dst, weight, n_edges,
                          trace_id=trace_id)
         os.remove(path)

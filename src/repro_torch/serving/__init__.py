@@ -7,7 +7,8 @@
             on the snapshot's device, with per-(tenant, epoch) closure
             caching for reachability
   gates     exactness and conservation checks
-  loadgen   open-loop load generator reporting QPS and p50/p99 latency
+  loadgen   open-loop load generator reporting QPS and p50/p99 latency,
+            in process or over TCP connections (``NetLoadGen``)
   sharding  K hash-band shards per tenant: routed stream views, the
             scatter/gather engine, cross-shard conservation, manifests
 

@@ -58,7 +58,7 @@ FAMILIES = (EDGE_FREQ, NODE_OUT, NODE_IN, REACH, PATH_WEIGHT,
 
 
 @dataclasses.dataclass(frozen=True)
-class Request:
+class Request:  # wire-type
     """One query; use the constructors below rather than raw instantiation."""
 
     family: str

@@ -11,19 +11,21 @@ universe (matching the graph-stream setting: hot vertices are queried more),
 batches whatever has arrived each time the engine frees up (up to
 ``batch_max``) and reports achieved QPS plus p50/p99/mean/max latency.
 ``synth_requests`` is numpy only and draws the same requests as the JAX
-package's for the same seed.  The network client (``NetLoadGen``) is not
-ported yet (ROADMAP item 12).
+package's for the same seed.  ``NetLoadGen`` drives the same open loop over
+TCP connections against a ``QueryServer`` (``python -m
+repro_torch.serving.loadgen --connect HOST:PORT``).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 from typing import Callable
 
 import numpy as np
 
-from repro_torch.obs.hub import Histogram, hist_summary
+from repro_torch.obs.hub import Histogram, hist_summary, merge_hist_states
 from repro_torch.serving import engine as eng
 from repro_torch.serving.snapshot import Snapshot
 
@@ -217,3 +219,220 @@ class OpenLoopLoadGen:
 
 
 # ------------------------------------------------------------ network mode --
+
+
+@dataclasses.dataclass
+class NetLoadReport:
+    """Open-loop report for a run against a network query server."""
+
+    n_requests: int
+    accepted: int
+    shed: int
+    shed_rate: float  # shed / offered — the accounted overload signal
+    errors: int
+    # transport casualties are NOT sheds: a connection that died (reset,
+    # timeout) aborts its unsent/unanswered remainder, accounted here so a
+    # client-side failure can't masquerade as server admission control
+    aborted: int
+    transport_error: str | None
+    connections: int
+    duration_s: float
+    offered_qps: float
+    achieved_qps: float  # accepted / duration
+    p50_ms: float
+    p90_ms: float
+    p99_ms: float
+    p999_ms: float
+    mean_ms: float
+    max_ms: float
+    n_batches: int
+    mean_retry_after_ms: float
+    last_epoch: int | None  # freshest epoch stamped on any answer
+    # per-connection log-bucket histograms merged parent-side — the same
+    # exact-sum merge the obs tier uses across workers, so per-connection
+    # latency distributions compose without shipping raw samples
+    latency_hist: dict = dataclasses.field(default_factory=dict)
+
+    def to_json(self) -> str:
+        return json.dumps(_round_floats(dataclasses.asdict(self)))
+
+
+class NetLoadGen:
+    """Multi-connection open-loop load against a TCP query server.
+
+    One global arrival clock, ``connections`` concurrent client
+    connections taking requests round-robin — so the *offered* load is
+    connection-count-invariant and connection count only changes how much
+    concurrency the server sees.  Latency (arrival→answer, queueing
+    included) is measured for ACCEPTED requests; rejections count as shed.
+    """
+
+    def __init__(self, *, target_qps: float = 500.0, connections: int = 4,
+                 batch_max: int = 64, tenant: str = "default",
+                 auth_token: str | None = None) -> None:
+        assert connections >= 1
+        self.target_qps = target_qps
+        self.connections = connections
+        self.batch_max = batch_max
+        self.tenant = tenant
+        self.auth_token = auth_token
+
+    def run(self, address: tuple[str, int],
+            requests: list[eng.Request]) -> NetLoadReport:
+        from repro_torch.net import wire
+        from repro_torch.net.query_server import QueryClient
+
+        n = len(requests)
+        interval = 1.0 / self.target_qps
+        arrivals = np.arange(n) * interval
+        lat_ms = np.full(n, np.nan)
+        accepted = np.zeros(n, dtype=bool)
+        errored = np.zeros(n, dtype=bool)
+        aborted = np.zeros(n, dtype=bool)
+        retry_hints: list[float] = []
+        transport_errors: list[str] = []
+        batches = [0]
+        last_epoch: list[int | None] = [None]
+        lock = threading.Lock()
+        t0 = [0.0]
+        # one mergeable histogram per connection; merged after the join so
+        # the report's distribution is the exact sum of per-connection ones
+        conn_hists = [Histogram(f"conn{c}_latency_seconds", {})
+                      for c in range(self.connections)]
+
+        def connection_loop(conn_idx: int) -> None:
+            mine = list(range(conn_idx, n, self.connections))
+            hist = conn_hists[conn_idx]
+            served = 0
+            client = None
+            try:
+                client = QueryClient(address, tenant=self.tenant,
+                                     auth_token=self.auth_token)
+                while served < len(mine):
+                    now = time.perf_counter() - t0[0]
+                    first = arrivals[mine[served]]
+                    if first > now:
+                        time.sleep(min(first - now, 0.02))
+                        continue
+                    hi = served
+                    while (hi < len(mine) and arrivals[mine[hi]] <= now
+                           and hi - served < self.batch_max):
+                        hi += 1
+                    idx = mine[served:hi]
+                    payload = client.call([requests[i] for i in idx])
+                    done = time.perf_counter() - t0[0]
+                    with lock:
+                        batches[0] += 1
+                        if payload["kind"] == "result":
+                            accepted[idx] = True
+                            lat_ms[idx] = (done - arrivals[idx]) * 1e3
+                            hist.observe_many(done - arrivals[idx])
+                            if payload["epoch"] is not None:
+                                last_epoch[0] = max(
+                                    last_epoch[0] or 0, payload["epoch"])
+                        elif payload["kind"] == "reject":
+                            retry_hints.append(payload["retry_after_ms"])
+                        else:  # server-side error: accounted, not shed
+                            errored[idx] = True
+                    served = hi
+            except (ConnectionError, TimeoutError, OSError,
+                    wire.WireError) as exc:
+                # the transport died, not the server's admission control:
+                # the in-flight batch and the unsent remainder are aborted,
+                # never folded into the shed count
+                with lock:
+                    transport_errors.append(repr(exc))
+                    if mine[served:]:
+                        aborted[mine[served:]] = True
+            finally:
+                if client is not None:
+                    client.close()
+
+        threads = [threading.Thread(target=connection_loop, args=(c,),
+                                    daemon=True, name=f"loadgen-conn-{c}")
+                   for c in range(self.connections)]
+        t0[0] = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        duration = time.perf_counter() - t0[0]
+
+        ok = lat_ms[accepted]
+        n_acc = int(accepted.sum())
+        n_err = int(errored.sum())
+        n_abort = int(aborted.sum())
+        shed = n - n_acc - n_err - n_abort
+        merged = conn_hists[0].state()
+        for h in conn_hists[1:]:
+            merged = merge_hist_states(merged, h.state())
+        return NetLoadReport(
+            n_requests=n,
+            accepted=n_acc,
+            shed=shed,
+            shed_rate=shed / n if n else 0.0,
+            errors=n_err,
+            aborted=n_abort,
+            transport_error=transport_errors[0] if transport_errors else None,
+            connections=self.connections,
+            duration_s=duration,
+            offered_qps=self.target_qps,
+            achieved_qps=n_acc / duration if duration > 0 else 0.0,
+            p50_ms=float(np.percentile(ok, 50)) if n_acc else float("nan"),
+            p90_ms=float(np.percentile(ok, 90)) if n_acc else float("nan"),
+            p99_ms=float(np.percentile(ok, 99)) if n_acc else float("nan"),
+            p999_ms=(float(np.percentile(ok, 99.9))
+                     if n_acc else float("nan")),
+            mean_ms=float(ok.mean()) if n_acc else float("nan"),
+            max_ms=float(ok.max()) if n_acc else float("nan"),
+            n_batches=batches[0],
+            mean_retry_after_ms=(float(np.mean(retry_hints))
+                                 if retry_hints else 0.0),
+            last_epoch=last_epoch[0],
+            latency_hist=_latency_summary_ms(merged),
+        )
+
+
+def main(argv: list[str] | None = None) -> int:
+    """CLI client: load a remote query server (a port one or a JAX one)."""
+    import argparse
+
+    from repro_torch.net import wire
+
+    p = argparse.ArgumentParser(
+        prog="python -m repro_torch.serving.loadgen",
+        description="open-loop load generator for a query server")
+    p.add_argument("--connect", required=True, metavar="HOST:PORT")
+    p.add_argument("--qps", type=float, default=500.0)
+    p.add_argument("--n-requests", type=int, default=2000)
+    p.add_argument("--connections", type=int, default=4)
+    p.add_argument("--batch-max", type=int, default=64)
+    p.add_argument("--tenant", default="default")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--auth-token", default="",
+                   help="shared token for a remote server "
+                        "(default: $KMATRIX_NET_TOKEN)")
+    args = p.parse_args(argv)
+
+    from repro_torch.net.query_server import QueryClient
+
+    address = wire.parse_hostport(args.connect)
+    probe = QueryClient(address, tenant=args.tenant,
+                        auth_token=args.auth_token or None)
+    info = probe.info()
+    probe.close()
+    n_nodes = int(info.get("n_nodes", 0)) or 1024
+    mix = mix_for_sketch(str(info.get("kind", "kmatrix")))
+    requests = synth_requests(args.n_requests, mix, n_nodes=n_nodes,
+                              seed=args.seed, heavy_universe=256,
+                              heavy_threshold=5.0)
+    gen = NetLoadGen(target_qps=args.qps, connections=args.connections,
+                     batch_max=args.batch_max, tenant=args.tenant,
+                     auth_token=args.auth_token or None)
+    report = gen.run(address, requests)
+    print(report.to_json())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -82,7 +82,7 @@ class TenantKey:
 
 
 @dataclasses.dataclass(frozen=True)
-class TenantOrigin:
+class TenantOrigin:  # wire-type
     """How to rebuild a registry-opened tenant from scratch, anywhere.
 
     Tenant construction is deterministic — stream, bootstrap sample,
@@ -102,8 +102,16 @@ class TenantOrigin:
     shard_seed: int | None = None
     shard_index: int | None = None
 
-    def rebuild(self) -> "Tenant":
-        reg = SketchRegistry(**self.registry)
+    def rebuild(self, device=None) -> "Tenant":
+        """The tenant, built anew; on ``device`` if given (a worker chooses
+        its own), else on the registry's device (the card when the
+        registry names none, as the JAX package's never does)."""
+        config = dict(self.registry)
+        if config.get("sketch_backend") == "pallas":  # the JAX package's name
+            config["sketch_backend"] = "width_class"
+        if device is not None:
+            config["device"] = str(device)
+        reg = SketchRegistry(**config)
         if self.n_shards is None:
             return reg.open(self.dataset, self.kind, self.budget_kb,
                             seed=self.seed)
@@ -111,6 +119,16 @@ class TenantOrigin:
                                    seed=self.seed, n_shards=self.n_shards,
                                    shard_seed=self.shard_seed)
         return sharded.shards[self.shard_index]
+
+    def for_wire(self) -> "TenantOrigin":
+        """This origin in the JAX package's shape, as it crosses the wire:
+        the registry without ``device`` (the JAX ``SketchRegistry`` takes
+        no such argument, and the worker chooses its device itself) and the
+        width-class kMatrix layout under the JAX name ``"pallas"``."""
+        config = {k: v for k, v in self.registry.items() if k != "device"}
+        if config.get("sketch_backend") == "width_class":
+            config["sketch_backend"] = "pallas"
+        return dataclasses.replace(self, registry=config)
 
 
 class Tenant:

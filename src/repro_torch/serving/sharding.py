@@ -559,17 +559,21 @@ def measure_sharded_ingest(tenant: ShardedTenant, *,
                            backend: str = "thread",
                            coalesce_batches: int = 16,
                            max_batches: int | None = None) -> dict:
-    """Backlog-drain ingest throughput over K shard workers.
+    """Backlog-drain ingest throughput over K shard workers, any backend.
 
-    Pre-fills each shard's queue with its (remaining) stream view, then
-    drains through one ``Runtime`` worker per shard — no pumps, no query
-    load: the pure concurrent-ingest capacity against K.  The wall runs from
-    each worker's first-ingest monotonic timestamp to its drain-publish
-    timestamp: stream generation and warm-up are off the clock, while the
-    publish end-point synchronizes on the device ingest chain (the
-    pending-count read), so asynchronous launches cannot hide device work
-    off the clock.  Conservation-checked: every queued edge must land in a
-    published epoch.  Only the thread backend is ported (ROADMAP item 12).
+    Pre-fills each shard's parent-side queue with its (remaining) stream
+    view, then drains through one ``Runtime`` worker per shard — no pumps,
+    no query load: the pure concurrent-ingest capacity against K, for the
+    thread backend (K worker threads in this interpreter) or a remote one
+    (``"process"``: K spawn children, each with its own interpreter and,
+    on the card, its own CUDA context).  The wall runs from each worker's
+    first-ingest monotonic timestamp to its drain-publish timestamp (one
+    system-wide clock, so valid across the process boundary): stream
+    generation, spawn, warm-up and readiness handshakes are off the clock
+    for every backend, while the publish end-point synchronizes on the
+    device ingest chain (the pending-count read), so asynchronous launches
+    cannot hide device work off the clock.  Conservation-checked: every
+    queued edge must land in a published epoch.
     """
     from repro_torch.runtime import QueueItem, Runtime
 
@@ -596,9 +600,12 @@ def measure_sharded_ingest(tenant: ShardedTenant, *,
                       coalesce_batches=coalesce_batches,
                       coalesce_target=coalesce_target)
     handles = [runtime.attach(shard, pump=False) for shard in tenant.shards]
-    warm_ingest_shapes(tenant)
+    if not runtime.backend.remote:
+        warm_ingest_shapes(tenant)  # remote workers warm on their side
     runtime.start()
-    runtime.wait_ready()  # ALL workers up before the backlog lands
+    runtime.wait_ready()  # ALL workers up before the backlog lands: the
+    #                       wall must measure the concurrent drain, not
+    #                       K staggered child boots
     base_edges = sum(h.worker.base_edges for h in handles)
     for handle, items in zip(handles, per_shard_items):
         for item in items:

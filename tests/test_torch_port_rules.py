@@ -40,6 +40,8 @@ from repro_torch.kernels import (
     reach_step,
 )
 from repro_torch.launch import query_serve, stream_ingest
+from repro_torch.net.ingest_server import WorkerServer, serve_worker_session
+from repro_torch.runtime.backend import run_ingest_worker
 from repro_torch.models.recsys import fm as tfm
 from repro_torch.serving import QueryEngine, SketchRegistry, synth_requests
 from repro_torch.serving import ShardStreamView
@@ -76,7 +78,11 @@ RUNTIME_SLICE = ["obs/trace.py", "obs/profile.py", "runtime/__init__.py",
                  "runtime/queueing.py", "runtime/policies.py",
                  "runtime/metrics.py", "runtime/worker.py",
                  "runtime/backend.py", "runtime/supervisor.py",
-                 "serving/sharding.py"]
+                 "serving/sharding.py",
+                 # the network tier and the metrics dump
+                 "net/__init__.py", "net/wire.py", "net/backend.py",
+                 "net/ingest_server.py", "net/query_server.py",
+                 "obs/dump.py", "serving/loadgen.py"]
 
 
 @pytest.mark.parametrize("module", RUNTIME_SLICE)
@@ -87,12 +93,19 @@ def test_runtime_slice_modules_are_scanned(module):
 
 
 def test_only_items_12_and_13b_stay_refused_by_query_serve():
-    items = {item for _, _, item in query_serve._LATER}
-    assert items == {"12", "13b"}
-    flags = {flag for flag, _, _ in query_serve._LATER}
-    assert "--background-ingest" not in flags and "--shards" not in flags
-    assert "--runtime-backend" in flags and "--serve" in flags
-    assert "--metrics-json" in flags
+    """Items 12 and 13b's flags were the last the driver refused; since the
+    network tier and the metrics dump are ported, it refuses none of the
+    JAX driver's flags but ``--no-donate`` (the port has no donation)."""
+    import repro.launch.query_serve as j_driver
+
+    assert not hasattr(query_serve, "_LATER")
+    ref = vars(j_driver.parse_args([]))
+    port = vars(query_serve.parse_args([]))
+    assert set(ref) <= set(port)
+    for argv in (["--background-ingest", "--runtime-backend", "process"],
+                 ["--background-ingest", "--serve", "127.0.0.1:0",
+                  "--connections", "2"], ["--metrics-json", "m.json"]):
+        assert vars(query_serve.parse_args(argv))["device"] == "cuda"
 
 
 @pytest.mark.parametrize("fn", [
@@ -103,9 +116,26 @@ def test_only_items_12_and_13b_stay_refused_by_query_serve():
     tq.heavy_nodes, tfm.init_params, build_fm_cell, interop.fm_params_from_jax,
     SketchRegistry.__init__, interop.snapshot_state_from_jax,
     ShardStreamView.batch, ShardStreamView.iter_from,
+    WorkerServer.__init__, serve_worker_session, run_ingest_worker,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_process_workers_take_the_parents_device_and_listen_defaults_to_cuda():
+    """A process child builds its tenant on the parent's device (the card
+    for a registry that names none), a ``--listen`` host on its own
+    ``--device``, the card by default."""
+    from repro_torch.runtime import BoundedEdgeQueue, ProcessBackend
+
+    assert stream_ingest.parse_args(
+        ["--listen", "127.0.0.1:0"]).device == "cuda"
+    tenant = SketchRegistry(depth=3, batch_size=1024, scale=0.02,
+                            device="cpu").open("cit-HepPh", "gmatrix", 64)
+    worker = ProcessBackend().make_worker(tenant, BoundedEdgeQueue(2),
+                                          "every:1")
+    assert worker.process._args[3] == "cpu" and not worker.is_alive()
+    assert SketchRegistry().device == "cuda"
 
 
 def test_cli_defaults_to_cuda_and_refuses_without_a_card():

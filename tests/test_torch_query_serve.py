@@ -2,7 +2,7 @@
 same flags, in its cooperative, background (``--background-ingest``) and
 sharded (``--shards 2 --background-ingest``) modes: the JAX summary keys
 plus ``device``, equal deterministic fields, bit-equal final counters; and
-the flags of parts not ported yet are refused naming their ROADMAP item."""
+every flag parses, and every flag error reads, as the JAX driver's."""
 import contextlib
 import io
 import json
@@ -105,26 +105,6 @@ def test_final_answers_equal_direct_and_replay(runs):
     assert again == port["requests"]
 
 
-LATER = [
-    (["--runtime-backend", "process"], "12"),
-    (["--runtime-backend", "socket:127.0.0.1:7733"], "12"),
-    (["--serve", "127.0.0.1:7311"], "12"), (["--connections", "2"], "12"),
-    (["--max-inflight", "8"], "12"), (["--tenant-qps", "5"], "12"),
-    (["--auth-token", "t"], "12"), (["--metrics-json", "m.json"], "13b"),
-    (["--metrics-interval-s", "2"], "13b"),
-]
-
-
-@pytest.mark.parametrize("flags,item", LATER, ids=[f[0][0] for f in LATER])
-def test_later_slices_flags_are_refused(flags, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        t_driver.parse_args(["--device", "cpu", "--background-ingest",
-                             *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{flags[0]} is not ported yet (ROADMAP item {item})" in err
-
-
 def test_no_donate_is_refused_and_defaults_equal_jax(capsys):
     with pytest.raises(SystemExit):
         t_driver.parse_args(["--no-donate"])
@@ -135,8 +115,9 @@ def test_no_donate_is_refused_and_defaults_equal_jax(capsys):
     assert port == ref
 
 
-# the flags of the runtime and sharding, refused before this slice: now
-# they parse as the JAX driver parses them
+# the flags of the runtime, sharding and network tier and of the metrics
+# dump, refused before they were ported: they parse as the JAX driver
+# parses them (the last nine under the ids their refusals had)
 PORTED = [
     ["--background-ingest"], ["--runtime-backend", "thread"],
     ["--publish-mode", "full"], ["--queue-capacity", "8"],
@@ -145,10 +126,22 @@ PORTED = [
     ["--checkpoint-dir", "x"], ["--checkpoint-every", "4"],
     ["--restore", "--checkpoint-dir", "x"], ["--ingest-dedup"],
     ["--span-log", "x"], ["--shards", "2"], ["--shard-seed", "3"],
+    ["--runtime-backend", "process"],
+    ["--runtime-backend", "socket:127.0.0.1:7733"],
+    ["--serve", "127.0.0.1:7311"],
+    ["--connections", "2", "--serve", "127.0.0.1:0"],
+    ["--max-inflight", "8", "--serve", "127.0.0.1:0"],
+    ["--tenant-qps", "5", "--serve", "127.0.0.1:0"],
+    ["--auth-token", "t", "--serve", "127.0.0.1:0"],
+    ["--metrics-json", "m.json"], ["--metrics-interval-s", "2"],
 ]
+PORTED_IDS = [f[0] for f in PORTED[:14]] + [
+    "--runtime-backend0", "--runtime-backend1", "--serve", "--connections",
+    "--max-inflight", "--tenant-qps", "--auth-token", "--metrics-json",
+    "--metrics-interval-s"]
 
 
-@pytest.mark.parametrize("flags", PORTED, ids=[f[0] for f in PORTED])
+@pytest.mark.parametrize("flags", PORTED, ids=PORTED_IDS)
 def test_runtime_flags_parse_as_jax(flags):
     argv = ["--background-ingest", *flags]
     port, ref = vars(t_driver.parse_args(argv)), vars(j_driver.parse_args(argv))
@@ -167,6 +160,14 @@ def test_runtime_flags_parse_as_jax(flags):
     (["--background-ingest", "--backpressure", "spill"],
      "spill requires --spill-dir"),
     (["--runtime-backend", "fibers"], "--runtime-backend must be one of"),
+    (["--runtime-backend", "process"],
+     "--runtime-backend requires --background-ingest"),
+    (["--serve", "127.0.0.1:0"], "--serve requires --background-ingest"),
+    (["--background-ingest", "--connections", "2"],
+     "--connections requires --serve"),
+    (["--background-ingest", "--tenant-qps", "5"],
+     "--tenant-qps requires --serve"),
+    (["--background-ingest", "--publish-mode", "both"], "invalid choice"),
 ])
 def test_runtime_flag_errors_equal_jax(argv, message, capsys):
     for parse in (t_driver.parse_args, j_driver.parse_args):

@@ -39,7 +39,7 @@ from repro_torch.runtime import (
     restore_worker_state,
 )
 from repro_torch.runtime import metrics as tmetrics
-from repro_torch.runtime.queueing import SpillFrameError, decode_item_frame
+from repro_torch.net.wire import WireError, decode_message
 from repro_torch.runtime.worker import preaggregate_edges
 from repro_torch.serving import SketchRegistry, gates
 from repro_torch.streams.reservoir import Reservoir
@@ -190,8 +190,8 @@ def test_spill_files_are_the_jax_wire_frames(tmp_path):
                              np.arange(5, dtype=np.int32),
                              np.array([1, 2, 0, 1, 70000], np.int64),
                              trace_id="w")
-    off, src, dst, w, n_edges, trace = decode_item_frame(
-        jwire.encode_item_frame(wide, on_wire=False))
+    _, off, src, dst, w, n_edges, trace = decode_message(
+        jwire.encode_item_frame(wide, on_wire=False), on_wire=False)
     assert (off, n_edges, trace, w.dtype) == (9, 4, "w", np.int64)
     np.testing.assert_array_equal(w, wide.weight)
     assert [q.get(timeout=1).offset for _ in range(3)] == [0, 1, 2]
@@ -206,8 +206,8 @@ def test_torn_spill_frame_is_refused(cut):
         frame[:4] = b"XXXX"
     else:  # n_dst one larger than n_src
         frame[12 + 16 + 4:12 + 16 + 8] = (5).to_bytes(4, "big")
-    with pytest.raises(SpillFrameError):
-        decode_item_frame(bytes(frame))
+    with pytest.raises(WireError):
+        decode_message(bytes(frame), on_wire=False)
 
 
 def test_queue_close_unblocks_producer_and_consumer():
@@ -447,10 +447,20 @@ def test_runtime_attach_is_idempotent_and_post_start_attach_fails():
 @pytest.mark.parametrize("spec", ["process", "socket",
                                   "socket:127.0.0.1:7733"])
 def test_remote_backends_name_roadmap_item_12(spec):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        resolve_backend(spec)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Runtime(backend=spec)
+    """The remote backends resolve as the JAX package's do (refused by name
+    before the network tier was ported; the test keeps its name)."""
+    from repro.runtime import resolve_backend as jresolve
+    from repro_torch.net.backend import SocketBackend
+    from repro_torch.runtime import ProcessBackend
+
+    cls = ProcessBackend if spec == "process" else SocketBackend
+    for backend in (resolve_backend(spec), Runtime(backend=spec).backend):
+        assert type(backend) is cls and backend.remote
+        ref = jresolve(spec)
+        assert backend.name == ref.name == spec.split(":")[0]
+        assert backend.publish_mode == ref.publish_mode == "delta"
+        if cls is SocketBackend:
+            assert backend.addresses == ref.addresses
     with pytest.raises(ValueError, match="unknown runtime backend"):
         resolve_backend("fibers")
     assert resolve_backend(None).name == "thread"
