@@ -128,6 +128,25 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      K = 1, 2, 4 through ``measure_sharded_ingest(backend="process")``,
      and the hub's publish bytes, delta against full.  No kernel may be
      built during the phase: the parent built them, the workers load them.
+     The kMatrix ``--serve`` front-end is scraped once, after its load and
+     before it stops, by ``python -m repro_torch.obs.dashboard --connect
+     HOST:PORT --once``: exit 0 and the kMatrix tenant's ingest panel.
+  K. Distributed sketching (``repro_torch.distributed``): phase F's flat
+     kMatrix (full cit-HepPh, 52 batches of 8192, 512 KB, depth 7,
+     banded) on a (2, 2) mesh of 4 ranks in DP, PP allgather and PP a2a at
+     cf = 2 and 4, and on a (2, 4) mesh of 8 ranks in PP a2a at cf = 2,
+     where capacity binds (cap 512 of a 1,024-edge slice).  Each mesh's
+     ranks are spawned once on the one card (gloo: NCCL refuses two ranks
+     on one device; every tensor on the card, a CUDA context each) and run
+     every mode.  Gates: DP, allgather and the (2, 2) a2a runs bit-equal to
+     a single-card replay (10,000 estimates, summed pools and conns; 0
+     drops, since cap = 2,048 * cf / 2 >= the slice); the (2, 4) a2a
+     estimates <= the replay's; reported drops == positive weight in -
+     the layer-0 mass of the summed pools.  Prints the backend, each
+     mode's ingest wall per batch and M edges/s (host clock, one
+     synchronise at the end), the collective bytes per batch, the drops,
+     the ARE and the card's memory per rank.  No kernel runs in phase K:
+     the flat kMatrix ingests with ``index_put_``.
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
      P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
@@ -210,6 +229,13 @@ PROCESS_DRAINS = 3  # process-backend drains at each K (phase J)
 # where nvidia-smi cannot list the sandbox's own pids
 CONTEXT_MIB = 250
 LATENCY_BIN_S = 0.5  # width of the arrival windows of the latency timeline
+# phase K: the flat kMatrix of phase F on two meshes of ranks on the one
+# card; (2, 2): cap = 2,048 * cf / 2 >= the 2,048-edge slice, so a2a
+# cannot drop; (2, 4) at cf = 2: cap = 512 of a 1,024-edge slice
+DIST_MESHES = (((2, 2), (("dp", None), ("allgather", None), ("a2a", 2.0),
+                         ("a2a", 4.0))),
+               ((2, 4), (("a2a", 2.0),)))
+DIST_QUERIES = 10_000
 
 
 def card_line() -> str:
@@ -1638,21 +1664,65 @@ def _wire_answers(smoke, label, run):
         "the direct answers on the final snapshot")
 
 
+def _scrape_after_load():
+    """Scrape the front-end once with ``python -m repro_torch.obs.dashboard
+    --connect HOST:PORT --once`` when the load is done and the server still
+    up; returns the box and the restore function."""
+    import os
+
+    from repro_torch.serving.loadgen import NetLoadGen
+
+    box, orig = {}, NetLoadGen.run
+
+    def run(self, address, *args, **kwargs):
+        out = orig(self, address, *args, **kwargs)
+        box["scrape"] = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.dashboard", "--connect",
+             "{}:{}".format(*address), "--once"], capture_output=True,
+            text=True, timeout=120, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        return out
+
+    NetLoadGen.run = run
+
+    def restore():
+        NetLoadGen.run = orig
+
+    return box, restore
+
+
 def _serve_net(smoke, kind, phase_h):
     """``query_serve --background-ingest --serve 127.0.0.1:0 --connections
     4``: the front-end's line beside phase H's in-process numbers, and the
-    answers over the wire."""
+    answers over the wire; the kMatrix's front-end is scraped once by the
+    dashboard."""
     torch = smoke.torch
     from repro_torch.launch import query_serve
 
     label = f"serve {kind}"
+    box, restore = _scrape_after_load() if kind == "kmatrix" else ({}, None)
     reset_launches()
     t0 = time.perf_counter()
-    run = query_serve._run(query_serve.parse_args(
-        [*BG_FLAGS, "--sketch", kind, "--serve", "127.0.0.1:0",
-         "--connections", "4"]))
+    try:
+        run = query_serve._run(query_serve.parse_args(
+            [*BG_FLAGS, "--sketch", kind, "--serve", "127.0.0.1:0",
+             "--connections", "4"]))
+    finally:
+        if restore is not None:
+            restore()
     torch.cuda.synchronize()
     launches = read_launches()
+    if kind == "kmatrix":
+        scrape = box.get("scrape")
+        text = scrape.stdout if scrape is not None else ""
+        print("  dashboard scrape of the front-end:\n    "
+              + "\n    ".join(text.strip().splitlines()
+                              or [scrape.stderr.strip() if scrape else "none"]))
+        panel = text.partition("ingest (per shard)")[2]
+        smoke.check(scrape is not None and scrape.returncode == 0
+                    and "/kmatrix/" in panel,
+                    "dashboard --connect --once on the kMatrix front-end: "
+                    "exit 0 and the kMatrix tenant's ingest panel")
     s, h = run["summary"], phase_h["summary"]
     row = {k: s[k] for k in ("achieved_qps", "p50_ms", "p99_ms", "shed",
                              "shed_rate", "aborted", "answer_epoch",
@@ -1785,6 +1855,226 @@ def phase_network(smoke, card, serve, bg):
                 f"directory {len(built)} entries before, {len(now)} after)")
     print(f"  {card}; phase J {time.perf_counter() - t0:.1f}s")
     return {"runs": out, "launches": launches}
+
+
+# ------------------------------------------------------------ phase K --
+
+def _card_memory_mib() -> int:
+    proc = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return int(proc.stdout.split()[0])
+
+
+def _k_rank(rank, world, shape, modes, leaves, static, n_queries):
+    """One rank of phase K: every mode of its mesh over the full stream,
+    each timed on the host clock (a barrier, the 52 batches, one
+    synchronise), then its query and the mesh's summed state."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import interop
+    from repro_torch.distributed import (
+        collective_stats, group, make_dp_edge_freq, make_dp_ingest,
+        make_pp_edge_freq, make_pp_ingest, reset_collective_stats,
+        stacked_state)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.streams import make_stream, sample_stream
+
+    dev = group.rank_device()
+    if dev.type != "cuda":
+        raise RuntimeError(f"rank {rank} runs on {dev}, not on the card")
+    sk = interop.import_state(leaves, static, device=dev)
+    mesh = make_mesh(shape, ("data", "model"))
+    stream = make_stream("cit-HepPh", batch_size=8192, scale=1.0)
+    batches = torch.as_tensor(np.stack([np.stack(stream.batch_numpy(i))
+                                        for i in range(stream.num_batches)]),
+                              device=dev)
+    qs, qd, _ = sample_stream(stream, n_queries, seed=99)
+    qs, qd = torch.as_tensor(qs, device=dev), torch.as_tensor(qd, device=dev)
+    out = {"rank": rank, "coord": mesh.get_coordinate(), "modes": {}}
+    for mode, cf in modes:
+        if mode == "dp":
+            ingest, query = make_dp_ingest(sk, mesh), make_dp_edge_freq(sk, mesh)
+            axes = ("data",)
+        else:
+            ingest, _ = make_pp_ingest(sk, mesh, mode=mode,
+                                       capacity_factor=cf or 2.0)
+            query, axes = make_pp_edge_freq(sk, mesh), None
+        # one warm batch into scratch state: first-call costs stay out
+        ingest(torch.zeros_like(sk.pool), torch.zeros_like(sk.conn),
+               *batches[0])
+        pool, conn = torch.zeros_like(sk.pool), torch.zeros_like(sk.conn)
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        reset_collective_stats()
+        t0 = time.perf_counter()
+        for s, t, w in batches:
+            res = ingest(pool, conn, s, t, w)
+            if mode != "dp":
+                dropped += res[2]
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        stats = collective_stats()
+        t0 = time.perf_counter()
+        est = query(pool, conn, qs, qd).cpu()
+        query_s = time.perf_counter() - t0
+        sp, sc = stacked_state(pool, conn, mesh, axes)
+        n_rows = sp.shape[0] // sk.depth
+        rec = {"wall_s": wall, "query_s": query_s, "stats": stats,
+               "dropped": int(dropped), "on": str(pool.device),
+               "batches": int(batches.shape[0])}
+        if rank == 0:
+            rec["est"] = est.numpy()
+            rec["pool"] = sp.view(n_rows, *sk.pool.shape).sum(
+                0, dtype=torch.int32).cpu().numpy()
+            rec["conn"] = sc.view(n_rows, *sk.conn.shape).sum(
+                0, dtype=torch.int32).cpu().numpy()
+        out["modes"][f"{mode} cf={cf}" if cf else mode] = rec
+    out["max_allocated"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _dist_mesh(smoke, shape, modes, template, replay):
+    """Spawn ``shape``'s ranks on the card once, run every mode in them,
+    and gate each against the single-card replay."""
+    import threading
+
+    from repro_torch.distributed import choose_topology, run_ranks
+
+    n = math.prod(shape)
+    topology = choose_topology(n, "cuda")
+    print(f"  mesh {shape}: {topology.describe()}; staged by the port "
+          "through pinned host buffers: none (gloo takes the CUDA tensors)")
+    before = _card_memory_mib()
+    peak, stop = [before], threading.Event()
+
+    def sample():
+        while not stop.wait(0.5):
+            peak.append(_card_memory_mib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(_k_rank, n, shape, modes, *template, DIST_QUERIES,
+                          device="cuda", timeout_s=600)
+    finally:
+        stop.set()
+        sampler.join(10)
+    wall = time.perf_counter() - t0
+    grown = max(peak) - before
+    print(f"  mesh {shape}: {n} ranks in {wall:.1f}s (spawn, stream, every "
+          f"mode); the card's memory {before} MiB before, +{grown} MiB at "
+          f"the peak: {grown / n:.0f} MiB per rank (a CUDA context each); "
+          f"max allocated per rank {max(r['max_allocated'] for r in ranks)} B")
+    smoke.check(all(rec["on"].startswith("cuda") for r in ranks
+                    for rec in r["modes"].values())
+                and grown >= CONTEXT_MIB * n,
+                f"mesh {shape}: every rank's state on the card, the card's "
+                f"memory grown {grown} MiB >= {CONTEXT_MIB} MiB per rank")
+    coords = [tuple(r["coord"]) for r in ranks]
+    smoke.check(coords == [divmod(r, shape[1]) for r in range(n)],
+                f"mesh {shape}: rank r at row-major coordinate {coords}")
+    rows = {}
+    for mode, cf in modes:
+        label = f"{mode} cf={cf}" if cf else mode
+        recs = [r["modes"][label] for r in ranks]
+        head = recs[0]
+        nb = head["batches"]
+        wall = max(r["wall_s"] for r in recs)
+        per = {name: {k: sum(r["stats"][name][k] for r in recs) / nb
+                      for k in ("calls", "bytes", "host_bytes", "seconds")}
+               for name in head["stats"]}
+        # the host's time inside the collectives, per batch, mean over ranks
+        coll_ms = {k: v["seconds"] / n * 1e3 for k, v in per.items()}
+        dropped = head["dropped"]
+        true_drops = replay["positive"] - int(head["pool"][0].sum())
+        row = {"mesh": list(shape), "mode": label,
+               "wall_ms_per_batch": wall / nb * 1e3,
+               "M_edges_per_s": STREAM_EDGES / wall / 1e6,
+               "query_ms": max(r["query_s"] for r in recs) * 1e3,
+               "collective_bytes_per_batch": {k: v["bytes"] for k, v in per.items()},
+               "host_carried_bytes_per_batch": sum(v["host_bytes"] for v in per.values()),
+               "collective_calls_per_batch": {k: v["calls"] for k, v in per.items()},
+               "collective_ms_per_batch": coll_ms,
+               "collective_share_of_wall": sum(coll_ms.values()) / (wall / nb * 1e3),
+               "dropped": dropped, "true_dropped": true_drops,
+               "ARE": replay["are"](head["est"])}
+        rows[label] = row
+        print(f"  {json.dumps(row)}")
+        exact = label in ("dp", "allgather") or shape == (2, 2)
+        same = ((head["est"] == replay["est"]).all()
+                and (head["pool"] == replay["pool"]).all()
+                and (head["conn"] == replay["conn"]).all())
+        if exact:
+            smoke.check(same and dropped == 0,
+                        f"mesh {shape} {label}: estimates of {DIST_QUERIES} "
+                        "queries, summed pools and conns bit-equal to the "
+                        "single-card replay, 0 drops")
+        else:
+            smoke.check(bool((head["est"] <= replay["est"]).all())
+                        and (head["conn"] == replay["conn"]).all(),
+                        f"mesh {shape} {label}: every estimate <= the "
+                        "replay's, conn equal to the replay's")
+        if label.startswith("a2a"):
+            smoke.check(dropped == true_drops,
+                        f"mesh {shape} {label}: reported drops {dropped} == "
+                        f"positive weight in - layer-0 mass = {true_drops}")
+    return rows
+
+
+def phase_distributed(smoke, card):
+    """The distributed kMatrix on the card: a (2, 2) mesh in DP, PP
+    allgather and PP a2a at cf = 2 and 4, and a (2, 4) mesh in PP a2a at
+    cf = 2, each rank a process of its own on the one card, gated against
+    a single-card replay of the same stream."""
+    torch = smoke.torch
+    from repro_torch import interop
+    from repro_torch.core import kmatrix, vertex_stats_from_sample
+    from repro_torch.core.metrics import (average_relative_error,
+                                          exact_edge_frequencies, lookup_exact)
+    from repro_torch.core.types import EdgeBatch
+    from repro_torch.serving.registry import build_sketch
+    from repro_torch.streams import make_stream, sample_stream
+
+    t0 = time.perf_counter()
+    stream = make_stream("cit-HepPh", batch_size=8192, scale=1.0)
+    ssrc, sdst, sw = sample_stream(stream, 30_000, seed=1)
+    sk, _ = build_sketch("kmatrix", 512 * 1024,
+                         vertex_stats_from_sample(ssrc, sdst, sw), 7, 0,
+                         "banded", backend="flat", device="cuda")
+    template = interop.export_state(sk)
+    replay, positive = kmatrix.empty_like(sk), 0
+    for i in range(stream.num_batches):
+        src, dst, w = stream.batch_numpy(i)
+        positive += int(w[w > 0].sum())
+        kmatrix.ingest(replay, EdgeBatch.from_numpy(src, dst, w, device="cuda"))
+    qs, qd, _ = sample_stream(stream, DIST_QUERIES, seed=99)
+    est = kmatrix.edge_freq(replay, torch.as_tensor(qs, device="cuda"),
+                            torch.as_tensor(qd, device="cuda")).cpu().numpy()
+    true = torch.as_tensor(lookup_exact(
+        exact_edge_frequencies(*stream.all_edges_numpy()), qs, qd))
+
+    def are(e) -> float:
+        return float(average_relative_error(torch.as_tensor(e), true))
+
+    replay_info = {"est": est, "pool": replay.pool.cpu().numpy(),
+                   "conn": replay.conn.cpu().numpy(), "positive": positive,
+                   "are": are}
+    print(f"  single-card replay: flat kMatrix pool {tuple(sk.pool.shape)}, "
+          f"conn {tuple(sk.conn.shape)}, {len(sk.route.widths)} partitions, "
+          f"{positive} edges, ARE {are(est)}")
+    rows = {}
+    for shape, modes in DIST_MESHES:
+        rows[shape] = _dist_mesh(smoke, shape, modes, template, replay_info)
+    print(f"  {card}; phase K {time.perf_counter() - t0:.1f}s")
+    return rows
 
 
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
@@ -2456,6 +2746,8 @@ def main() -> int:
                       smoke, card, serve) if serve else None)
     net = (smoke.phase("J. the network tier", phase_network, smoke, card,
                        serve, bg) if bg else None)
+    if card:
+        smoke.phase("K. distributed sketching", phase_distributed, smoke, card)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
                            cmp, reach, fm, serve, bg, net)
                if reach is not None and fm is not None and serve is not None

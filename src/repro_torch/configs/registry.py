@@ -3,8 +3,8 @@
 
 A cell is (arch x shape): the step function and its inputs.  The port
 builds the FM's serve and retrieval cells on one card; the JAX package's
-mesh and shardings belong to the distribution slice, and its other
-families to the model-zoo slice (ROADMAP.md, items 14 and 16).
+shardings and its other families belong to the model-zoo slice
+(ROADMAP.md, item 16), and its mesh is ``repro_torch.launch.mesh``.
 """
 from __future__ import annotations
 

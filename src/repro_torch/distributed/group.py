@@ -1,0 +1,302 @@
+"""Process groups for the distributed sketch: the one place where ranks start.
+
+    run_ranks(fn, world_size, *args, device="cuda")
+
+spawns ``world_size`` processes (never fork: a CUDA context does not
+survive one), joins them into one ``torch.distributed`` process group and
+calls ``fn(rank, world_size, *args)`` in each.  The parent gets every
+rank's return value in rank order, or ``RankFailure`` with the failing
+ranks' tracebacks; every child is joined with a bound and killed past it
+(at once when the run fails), so none is left behind.
+
+The backend is chosen once, in the parent, from the topology
+(``choose_topology``):
+
+  nccl  every rank has a card of its own (no more ranks than cards);
+  gloo  the ranks share a card, or run on the CPU.
+
+NCCL refuses two ranks on one device, so ranks that share the one card run
+gloo on their CUDA tensors.  gloo takes CUDA tensors for every collective
+this package calls (``all_reduce``, ``all_gather``, ``all_to_all_single``:
+the card's torch 2.11 build), copying them through host memory itself, so
+no tensor is moved off the card by the port.  ``collective_stats()``
+counts each collective's calls and the bytes it delivers to this rank, and
+the share of them that gloo carried through the host.
+
+Rendezvous is a ``file://`` path in a fresh temporary directory, so
+concurrent runs never collide on a port, and every collective has the
+group's ``timeout``: a hung collective fails the run instead of stalling it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import multiprocessing
+import os
+import queue
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all")
+FAILURE_GRACE_S = 2.0
+COLLECTIVE_TIMEOUT_S = 120.0  # a collective (or the rendezvous) waits no longer
+
+
+class RankFailure(RuntimeError):
+    """A rank raised, died or outlived the run's deadline."""
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """How the ranks of one run reach each other."""
+
+    backend: str  # "nccl" or "gloo"
+    device_type: str  # "cuda" or "cpu"
+    world_size: int
+
+    @property
+    def host_carried(self) -> bool:
+        """Whether gloo carries CUDA tensors through host memory."""
+        return self.backend == "gloo" and self.device_type == "cuda"
+
+    def device(self, rank: int) -> torch.device:
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device("cuda", rank if self.backend == "nccl" else 0)
+
+    def describe(self) -> str:
+        if self.device_type == "cpu":
+            where = "on the CPU"
+        elif self.backend == "nccl":
+            where = "one card each"
+        else:
+            where = "sharing cuda:0 (CUDA tensors, carried through host memory by gloo)"
+        return f"{self.backend}: {self.world_size} ranks {where}"
+
+
+def choose_topology(world_size: int, device="cuda",
+                    n_cards: int | None = None) -> Topology:
+    """The backend for ``world_size`` ranks on ``device`` of this host.
+
+    A missing card is an error, never a move to the CPU.
+    """
+    device_type = torch.device(device).type
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {device!r}")
+    if world_size < 1:
+        raise ValueError(f"world_size must be >= 1, got {world_size}")
+    if device_type == "cpu":
+        return Topology("gloo", "cpu", world_size)
+    if n_cards is None:
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards == 0:
+        raise RuntimeError("CUDA is not available: the ranks run on the card; "
+                           "pass device='cpu' to run them on the CPU")
+    backend = "nccl" if world_size <= n_cards else "gloo"
+    return Topology(backend, "cuda", world_size)
+
+
+# --------------------------------------------------- this rank's group --
+
+@dataclasses.dataclass
+class _Comm:
+    topology: Topology
+    device: torch.device
+    stats: dict
+
+
+_comm: _Comm | None = None  # set once per rank process by _start_rank
+
+
+def _fresh_stats() -> dict:
+    return {name: {"calls": 0, "bytes": 0, "host_bytes": 0, "seconds": 0.0}
+            for name in COLLECTIVES}
+
+
+def current() -> _Comm:
+    if _comm is None:
+        raise RuntimeError("no process group in this process: start ranks "
+                           "with repro_torch.distributed.run_ranks")
+    return _comm
+
+
+def rank_device() -> torch.device:
+    """This rank's device: its own card, the shared card, or the CPU."""
+    return current().device
+
+
+def collective_stats() -> dict:
+    """Per collective: calls, bytes delivered to this rank, the bytes of
+    those that gloo carried through host memory, and the host's seconds
+    inside the calls (each returns when its data is in place: gloo waits
+    for the copies of a CUDA tensor; NCCL's calls only enqueue)."""
+    return {k: dict(v) for k, v in current().stats.items()}
+
+
+def reset_collective_stats() -> None:
+    current().stats = _fresh_stats()
+
+
+def _count(name: str, out: torch.Tensor, t0: float) -> None:
+    seconds = time.perf_counter() - t0
+    comm = current()
+    nbytes = out.numel() * out.element_size()
+    row = comm.stats[name]
+    row["calls"] += 1
+    row["bytes"] += nbytes
+    row["seconds"] += seconds
+    if comm.topology.host_carried:
+        row["host_bytes"] += nbytes
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place; returns ``t``."""
+    t0 = time.perf_counter()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    _count("all_reduce", t, t0)
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """Every group member's ``t``, stacked in group-rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    t0 = time.perf_counter()
+    dist.all_gather(parts, t.contiguous(), group=group)
+    out = torch.stack(parts)
+    _count("all_gather", out, t0)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Row block ``j`` of ``t`` (dim 0 split in group-size equal blocks) goes
+    to group rank ``j``; block ``j`` of the result came from group rank ``j``."""
+    if t.shape[0] % dist.get_world_size(group):
+        raise ValueError(f"all_to_all: dim 0 ({t.shape[0]}) is not a multiple "
+                         f"of the group size {dist.get_world_size(group)}")
+    out = torch.empty_like(t)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, t.contiguous(), group=group)
+    _count("all_to_all", out, t0)
+    return out
+
+
+def _start_rank(rank: int, init_file: str, topology: Topology) -> None:
+    global _comm
+    device = topology.device(rank)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"rank {rank}: CUDA is not available")
+        torch.cuda.set_device(device)
+    else:  # ranks on the CPU share its cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // topology.world_size))
+    dist.init_process_group(
+        topology.backend, init_method=f"file://{init_file}", rank=rank,
+        world_size=topology.world_size,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S),
+        device_id=device if topology.backend == "nccl" else None)
+    _comm = _Comm(topology, device, _fresh_stats())
+
+
+def _stop_rank(finished: bool) -> None:
+    """Leave the group; a rank that finished waits for its peers first, so
+    none is torn down inside a collective."""
+    global _comm
+    _comm = None
+    if dist.is_initialized():
+        if finished:
+            dist.barrier()
+        dist.destroy_process_group()
+
+
+def _rank_main(fn, rank, init_file, topology, args, results):
+    """Child entry: start the rank, run ``fn``, report (rank, ok, value)."""
+    finished = False
+    try:
+        _start_rank(rank, init_file, topology)
+        value = fn(rank, topology.world_size, *args)
+        finished = True
+    except Exception:  # reported to the parent, which fails the run
+        results.put((rank, False, traceback.format_exc()))
+    else:
+        results.put((rank, True, value))
+    finally:
+        _stop_rank(finished)
+
+
+def run_ranks(fn, world_size: int, *args, device="cuda",
+              timeout_s: float = 600.0) -> list:
+    """Run ``fn(rank, world_size, *args)`` in ``world_size`` spawned ranks
+    of one process group on ``device``; returns the ranks' values in rank
+    order.  ``fn`` and ``args`` must pickle (a module-level function).
+
+    Raises ``RankFailure`` when a rank raises or dies, or when the run
+    outlives ``timeout_s``; a collective that waits longer than
+    ``COLLECTIVE_TIMEOUT_S`` raises in its rank.
+    """
+    topology = choose_topology(world_size, device)
+    print(f"process group: {topology.describe()}", flush=True)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro-rdzv-") as tmp:
+        init_file = os.path.join(tmp, "rendezvous")
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            fn, rank, init_file, topology, args, results))
+            for rank in range(world_size)]
+        for p in procs:
+            p.start()
+        try:
+            return _collect(procs, results, timeout_s)
+        except BaseException:  # a failed run: no rank is waited for
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            raise
+        finally:
+            for p in procs:
+                p.join(timeout=10.0)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10.0)
+            results.close()
+
+
+def _collect(procs, results, timeout_s: float) -> list:
+    """Every rank's value, draining the queue before any join.  On the
+    first failure, the failures reported within FAILURE_GRACE_S more are
+    raised together (a rank's error often makes its peers fail too)."""
+    values: dict[int, object] = {}
+    failures: dict[int, str] = {}
+    deadline = time.monotonic() + timeout_s
+    silent_exits: dict[int, int] = {}
+    while len(values) + len(failures) < len(procs):
+        left = deadline - time.monotonic()
+        if left <= 0:
+            break
+        try:
+            rank, ok, value = results.get(timeout=min(left, 0.5))
+        except queue.Empty:
+            # a rank that exited without a report (killed, or crashed in
+            # native code); a report still in the pipe arrives within polls
+            for r, p in enumerate(procs):
+                if r not in values and r not in failures and not p.is_alive():
+                    silent_exits[r] = silent_exits.get(r, 0) + 1
+                    if silent_exits[r] > 4:
+                        failures[r] = f"exited with code {p.exitcode} and no result"
+            continue
+        if ok:
+            values[rank] = value
+            continue
+        failures[rank] = value
+        deadline = min(deadline, time.monotonic() + FAILURE_GRACE_S)
+    if failures:
+        raise RankFailure("\n".join(f"rank {r} failed:\n{tb}"
+                                     for r, tb in sorted(failures.items())))
+    if len(values) < len(procs):
+        missing = sorted(set(range(len(procs))) - set(values))
+        raise RankFailure(f"ranks {missing} did not finish within {timeout_s} s")
+    return [values[r] for r in range(len(procs))]

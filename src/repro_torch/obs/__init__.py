@@ -1,8 +1,9 @@
 """Telemetry: the mergeable metrics hub (``hub``) and the bounded span log
 (``trace``), copies of the JAX package's, the ``REPRO_PROFILE=1``
 timing hooks (``profile``) on ``torch.profiler``, and the exposition
-plumbing (``dump``: the scrape payload and the ``--metrics-json`` file).
-The JAX package's dashboard is not ported yet (ROADMAP item 13b).
+plumbing (``dump``: the scrape payload and the ``--metrics-json`` file),
+and the live terminal poller (``dashboard``, a copy of the JAX package's:
+``python -m repro_torch.obs.dashboard``).
 """
 from repro_torch.obs.dump import MetricsJsonDumper, scrape_payload  # noqa: F401
 from repro_torch.obs.hub import (  # noqa: F401

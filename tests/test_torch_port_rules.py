@@ -39,6 +39,9 @@ from repro_torch.kernels import (
     reach_closure,
     reach_step,
 )
+from repro_torch.distributed import choose_topology, group, run_ranks
+from repro_torch.distributed import sketch_parallel
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.net.ingest_server import WorkerServer, serve_worker_session
 from repro_torch.runtime.backend import run_ingest_worker
@@ -82,7 +85,11 @@ RUNTIME_SLICE = ["obs/trace.py", "obs/profile.py", "runtime/__init__.py",
                  # the network tier and the metrics dump
                  "net/__init__.py", "net/wire.py", "net/backend.py",
                  "net/ingest_server.py", "net/query_server.py",
-                 "obs/dump.py", "serving/loadgen.py"]
+                 "obs/dump.py", "serving/loadgen.py",
+                 # distribution and the dashboard
+                 "distributed/__init__.py", "distributed/group.py",
+                 "distributed/sketch_parallel.py", "launch/mesh.py",
+                 "obs/dashboard.py"]
 
 
 @pytest.mark.parametrize("module", RUNTIME_SLICE)
@@ -117,9 +124,51 @@ def test_only_items_12_and_13b_stay_refused_by_query_serve():
     SketchRegistry.__init__, interop.snapshot_state_from_jax,
     ShardStreamView.batch, ShardStreamView.iter_from,
     WorkerServer.__init__, serve_worker_session, run_ingest_worker,
+    run_ranks, choose_topology,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("module", [sketch_parallel, tmesh],
+                         ids=lambda m: m.__name__)
+def test_distributed_entry_points_take_the_groups_device(module):
+    """The mesh and the distributed sketch have no device of their own: they
+    run on the device ``run_ranks`` gave the group, the card by default,
+    and name no CPU anywhere."""
+    public = [getattr(module, n) for n in dir(module)
+              if not n.startswith("_") and inspect.isfunction(getattr(module, n))
+              and getattr(module, n).__module__ == module.__name__]
+    assert len(public) >= 5
+    for fn in public:
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
+    tree = ast.parse(Path(module.__file__).read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Constant)
+                and isinstance(n.value, str) and n.value.startswith("cpu")]
+
+
+COLLECTIVE_CALLS = {"all_reduce", "all_gather", "all_gather_into_tensor",
+                    "all_to_all", "all_to_all_single", "broadcast", "barrier",
+                    "init_process_group", "init_device_mesh", "new_group"}
+
+
+@pytest.mark.parametrize("module", [group, sketch_parallel, tmesh],
+                         ids=lambda m: m.__name__)
+def test_backend_is_chosen_without_catching_a_collectives_error(module):
+    """No ``try`` with an ``except`` wraps a collective (the backend and the
+    transport come from the topology, never from an error), and the choice
+    itself catches nothing."""
+    tree = ast.parse(Path(module.__file__).read_text())
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Try) and node.handlers):
+            continue
+        called = {getattr(c.func, "attr", getattr(c.func, "id", None))
+                  for stmt in node.body for c in ast.walk(stmt)
+                  if isinstance(c, ast.Call)}
+        assert not called & COLLECTIVE_CALLS, (node.lineno, called)
+    choose = next(n for n in ast.walk(ast.parse(inspect.getsource(
+        group.choose_topology))) if isinstance(n, ast.FunctionDef))
+    assert not [n for n in ast.walk(choose) if isinstance(n, ast.Try)]
 
 
 def test_process_workers_take_the_parents_device_and_listen_defaults_to_cuda():
