@@ -147,6 +147,27 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      synchronise at the end), the collective bytes per batch, the drops,
      the ARE and the card's memory per rank.  No kernel runs in phase K:
      the flat kMatrix ingests with ``index_put_``.
+  L. Training: the FM ``train_batch`` cell at full width through
+     ``build_fm_cell`` (65,536 x 39 ids and {0, 1} labels from a numpy
+     seed, the 10,000,384 x 10 table, AdamW lr 1e-3 with 100 warm-up
+     steps), 4 steps, each counted from zero: 3 ``embedding_bag`` and 2
+     ``embedding_bag_backward`` launches and no other kernel, the squared
+     table derived again after every step, the loss finite and falling;
+     step time, rows/s, peak memory and the device's idle share.  The same
+     cell at a small table (5,120 rows, 7 fields) on the card and on the
+     CPU from one set of weights: 3 steps, losses and parameters within
+     1e-6.  The transformer family through its drivers:
+     ``launch/serve.py`` (batch 4, prompt 32, 16 greedy tokens) and
+     ``launch/train.py`` (3 steps at batch 8, seq 256) for gemma2-2b at
+     full width (bf16, 26 layers, d = 2304, vocab 256,000; weights from a
+     torch seed) and for the reduced mixtral-8x7b and grok-1-314b (the MoE
+     dispatch on the card), none launching a kernel; prefill and decode
+     times, decode tokens/s, train tokens/s and peak memory, and the
+     device's idle share over a profiled gemma2-2b train step and decode
+     step.  The two
+     reduced MoE configs also run on the card and the CPU from the same
+     float32 weights: loss within rtol 1e-5, prefill and 4 decode steps'
+     logits within rtol 1e-5, atol 1e-5.
   B. Each kernel against its plain version on the card, on the inputs the
      main paths give it (``matrix_ingest_edges``: the kMatrix batch and the
      P = 1 gMatrix batch, plus a turnstile batch and one whose cells pass
@@ -156,7 +177,12 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      ``node_cells``, ``matrix_lookup`` on the queries' ``node_cells``; the
      kMatrix and gMatrix closures for ``reach_closure`` and their
      squarings for ``reach_step``, every bag of phase G for
-     ``embedding_bag``) plus one wide shape each for the sketch kernels
+     ``embedding_bag``, both backward launches of a phase-L FM train step
+     for ``embedding_bag_backward``, within 1e-6 of max |grad| + 1e-9 of
+     its plain version since its atomics add in no fixed order, the
+     library call ``F.embedding_bag``'s autograd backward, which covers
+     only the Σv term of the ``emb`` launch) plus one wide shape each for
+     the sketch kernels
      (``reach_step`` also at phase D's 2 MB table): bit-equal results, and
      times
      of the kernel, the plain version and one PyTorch library call computing
@@ -236,6 +262,33 @@ DIST_MESHES = (((2, 2), (("dp", None), ("allgather", None), ("a2a", 2.0),
                          ("a2a", 4.0))),
                ((2, 4), (("a2a", 2.0),)))
 DIST_QUERIES = 10_000
+# phase L: the FM train cell at full width (JAX's train_batch: 65,536 x 39,
+# AdamW lr 1e-3, 100 warm-up steps), 3 bag and 2 backward launches a step
+FM_TRAIN_STEPS = 4
+FM_TRAIN_BAGS, FM_TRAIN_BACKWARDS = 3, 2
+# card vs CPU after 3 small-table steps: the backward's atomics add in
+# another order than the plain float64 sums (~1e-7 of a gradient), which
+# Adam carries into an update of at most lr (<= 3e-5 in these steps)
+FM_TRAIN_LOSS_TOL, FM_TRAIN_PARAM_TOL = 1e-6, 1e-6
+# embedding_bag_backward vs its plain version: a row hit k times differs by
+# about k float32 roundings of its running sum; k is small at B = 65,536
+BACKWARD_REL_TOL = 1e-6
+# reduced transformers, card vs CPU on the same float32 weights (cuBLAS
+# and the CPU sum the products in other orders; TF32 off)
+LM_RTOL, LM_ATOL = 1e-5, 1e-5
+LM_REFERENCE = ("mixtral-8x7b", "grok-1-314b")
+_SERVE = ["--batch", "4", "--prompt-len", "32", "--gen", "16"]
+LM_SERVE_RUNS = ((["--arch", "gemma2-2b", *_SERVE], "gemma2-2b"),
+                 (["--arch", "mixtral-8x7b", "--reduced", *_SERVE],
+                  "mixtral-8x7b reduced"),
+                 (["--arch", "grok-1-314b", "--reduced", *_SERVE],
+                  "grok-1-314b reduced"))
+_TRAIN = ["--steps", "3", "--batch", "8", "--seq", "256", "--log-every", "1"]
+LM_TRAIN_RUNS = ((["--arch", "gemma2-2b", *_TRAIN], "gemma2-2b", 8, 256),
+                 (["--arch", "mixtral-8x7b", "--reduced", *_TRAIN],
+                  "mixtral-8x7b reduced", 8, 256),
+                 (["--arch", "grok-1-314b", "--reduced", *_TRAIN],
+                  "grok-1-314b reduced", 8, 256))
 
 
 def card_line() -> str:
@@ -343,7 +396,7 @@ class Smoke:
 
 KERNEL_NAMES = ("matrix_ingest", "matrix_ingest_edges", "matrix_lookup",
                 "matrix_lookup_edges", "reach_step", "reach_closure",
-                "embedding_bag")
+                "embedding_bag", "embedding_bag_backward")
 
 
 def _wrappers() -> dict:
@@ -722,24 +775,31 @@ def phase_profile(smoke, sl):
 
 
 def _capture_bags(torch, fn):
-    """``fn()``'s result and, for every ``embedding_bag`` call the FM made
-    in it, ``(table, idx, weights, out)``.  The tensors are the call's
-    own (nothing on the path writes to them afterwards), not copies."""
+    """``fn()``'s result and, for every bag the FM took in it, ``(table,
+    idx, weights, out)``: the Σv and Σv² bags of ``sum_and_square_bags``
+    and the ``lin`` bag of ``embedding_bag``, in that order.  The tensors
+    are the call's own (nothing on the path writes to them afterwards),
+    not copies."""
     from repro_torch.models.recsys import fm as fm_mod
 
     calls = []
-    real = fm_mod.embedding_bag
+    real_bag, real_pair = fm_mod.embedding_bag, fm_mod.sum_and_square_bags
 
     def record(table, idx, weights=None):
-        out = real(table, idx, weights)
+        out = real_bag(table, idx, weights)
         calls.append((table, idx, weights, out))
         return out
 
-    fm_mod.embedding_bag = record
+    def record_pair(table, squared, idx):
+        out = real_pair(table, squared, idx)
+        calls.extend([(table, idx, None, out[0]), (squared, idx, None, out[1])])
+        return out
+
+    fm_mod.embedding_bag, fm_mod.sum_and_square_bags = record, record_pair
     try:
         result = fn()
     finally:
-        fm_mod.embedding_bag = real
+        fm_mod.embedding_bag, fm_mod.sum_and_square_bags = real_bag, real_pair
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return result, calls
@@ -2077,6 +2137,295 @@ def phase_distributed(smoke, card):
     return rows
 
 
+# ------------------------------------------------------------ phase L --
+
+def _capture_backward(fn):
+    """``fn()``'s result and, for every ``embedding_bag_backward`` call made
+    in it, ``(grad_out, idx, num_rows, table, grad_sq)``.  The run is not a
+    counted one: the recorder stands where the wrapper counts."""
+    import importlib
+
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+
+    calls = []
+    real = eb.embedding_bag_backward
+
+    def record(grad_out, idx, num_rows, table=None, grad_sq=None):
+        calls.append((grad_out, idx, num_rows, table, grad_sq))
+        return real(grad_out, idx, num_rows, table, grad_sq)
+
+    record.launches = 0
+    eb.embedding_bag_backward = record
+    try:
+        result = fn()
+    finally:
+        eb.embedding_bag_backward = real
+    return result, calls
+
+
+def _fm_train_steps(smoke, cell, steps: int, label: str) -> dict:
+    """``steps`` runs of an FM train cell, each counted from zero: 3
+    ``embedding_bag`` and 2 ``embedding_bag_backward`` launches a step on the
+    card, and the squared table derived again after each step."""
+    torch = smoke.torch
+    params = cell.params.params
+    on_card = params.emb.is_cuda
+    losses, step_ms, launches = [], [], []
+    for _ in range(steps):
+        version = params.emb._version
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = cell.run()
+        loss = float(metrics["loss"])  # reads back: the step has ended
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches())
+        losses.append(loss)
+        with torch.no_grad():
+            fresh = params.squared_table()
+            rederived = (params.emb._version != version and
+                         torch.equal(fresh, params.emb * params.emb))
+        smoke.check(rederived, f"{label}: emb updated in place and the squared "
+                    "table derived again after the step")
+    if on_card:
+        expect = {k: 0 for k in KERNEL_NAMES}
+        expect.update(embedding_bag=FM_TRAIN_BAGS, embedding_bag_backward=
+                      FM_TRAIN_BACKWARDS)
+        smoke.check(all(x == expect for x in launches),
+                    f"{label}: launches per step {launches[-1]} == {expect}")
+    smoke.check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+                f"{label}: losses finite and falling {losses}")
+    total = {k: sum(x[k] for x in launches) for k in KERNEL_NAMES}
+    return {"losses": losses, "step_ms": step_ms, "launches": total}
+
+
+def _lm_reference_check(smoke, name: str):
+    """A reduced config on the card against the CPU on the same weights (made
+    on the CPU, copied to the card): the loss, and prefill plus decode
+    logits, fed the same tokens on both."""
+    torch = smoke.torch
+    import numpy as np
+
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.models.transformer import model as tmodel
+
+    cfg = reduced(LM_CONFIGS[name])
+    cpu = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to_card(x):
+        if isinstance(x, dict):
+            return {k: to_card(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_card(v) for v in x]
+        return x.detach().to("cuda").requires_grad_(True)
+
+    card = to_card(cpu)
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        t = torch.as_tensor(toks).to(dev)
+        loss, _ = tmodel.lm_loss(cfg, params, t, t)
+        cache = tmodel.init_cache(cfg, 2, 48, dtype=torch.float32, device=dev)
+        logits, cache = tmodel.prefill(cfg, params, t[:, :40], cache)
+        steps = [logits]
+        for i in range(40, 44):
+            logits, cache = tmodel.decode_step(cfg, params, t[:, i:i + 1], cache)
+            steps.append(logits)
+        out[dev] = (float(loss.detach()), torch.cat(steps, 1).cpu())
+    err = float((out["cpu"][1] - out["cuda"][1]).abs().max())
+    smoke.check(abs(out["cpu"][0] - out["cuda"][0]) <= LM_RTOL * abs(out["cpu"][0])
+                and torch.allclose(out["cuda"][1], out["cpu"][1], rtol=LM_RTOL,
+                                   atol=LM_ATOL),
+                f"{cfg.name}: loss {out['cuda'][0]!r} on the card, "
+                f"{out['cpu'][0]!r} on the CPU; prefill + 4 decode logits "
+                f"within rtol {LM_RTOL}, atol {LM_ATOL} (max abs diff {err!r})")
+
+
+def _lm_idle(smoke, cfg, batch: int, seq: int):
+    """Device busy time and idle share of one train step of ``cfg``
+    (torch.profiler over steps of a fresh state, each synchronised)."""
+    torch = smoke.torch
+    import numpy as np
+
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models.transformer import model as tmodel
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.steps import lm_loss_fn
+
+    opt = AdamWConfig(lr_peak=3e-3, warmup_steps=5, total_steps=10)
+    box = {"state": init_train_state(tmodel.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda"), opt)}
+    step = make_train_step(lm_loss_fn(cfg), opt)
+    data = synthetic_lm_batch(np.random.default_rng(5), batch, seq, cfg.vocab)
+
+    def run():
+        box["state"], metrics = step(box["state"], data)
+        return metrics["loss"]
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, top = _device_breakdown(torch, run, iters=1)
+    del box["state"]
+    return wall, busy, top
+
+
+def _decode_idle(smoke, cfg, batch: int, prompt: int, iters: int = 4):
+    """Device busy time and idle share of one decode step of ``cfg`` after a
+    prefill (torch.profiler over synchronised steps, as a served token)."""
+    torch = smoke.torch
+
+    from repro_torch.models.transformer import model as tmodel
+
+    params = tmodel.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(2), "cuda",
+        requires_grad=False)
+    steps = 1 + 2 * iters + 1  # the profiler's warm call, two cycles, one timed
+    cache = tmodel.init_cache(cfg, batch, prompt + steps, dtype=torch.float32,
+                              device="cuda")
+    toks = torch.zeros((batch, prompt), dtype=torch.int32, device="cuda")
+    logits, cache = tmodel.prefill(cfg, params, toks, cache)
+    box = {"cache": cache, "next": torch.argmax(logits, -1).to(torch.int32)}
+
+    def step():
+        logits, box["cache"] = tmodel.decode_step(cfg, params, box["next"],
+                                                  box["cache"])
+        box["next"] = torch.argmax(logits, -1).to(torch.int32)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy, top = _device_breakdown(torch, step, iters=iters)
+    return wall, busy, top
+
+
+def phase_train(smoke, card):
+    """Training on the card: the FM train_batch cell at full width with its
+    counted launches, the same steps on the CPU at a small config, and the
+    transformer family through its drivers (gemma2-2b at full width, the
+    reduced MoE configs)."""
+    torch = smoke.torch
+    import numpy as np
+
+    from repro_torch import interop
+    from repro_torch.configs import registry
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.launch import serve, train
+    from repro_torch.models.recsys import fm as fm_mod
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    # -- the FM train cell at full width ----------------------------------
+    cfg = registry._fm_config()
+    params = fm_mod.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                "cuda", requires_grad=True)
+    torch.cuda.reset_peak_memory_stats()
+    cell = registry.build_fm_cell("train_batch", params,
+                                  np.random.default_rng(0), device="cuda")
+    ids = cell.inputs[0]["ids"]
+    smoke.check(tuple(ids.shape) == (65_536, 39) and cfg.table_rows == 10_000_384,
+                "FM train_batch at full width: 65,536 x 39 ids, 10,000,384 rows")
+    run = _fm_train_steps(smoke, cell, FM_TRAIN_STEPS, "fm train_batch")
+    out["launches"]["fm train"] = run["launches"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(run["step_ms"][1:])
+    busy, top = _device_breakdown(torch, cell.run, iters=3)
+    fm_row = {"steps": FM_TRAIN_STEPS, "losses": run["losses"],
+              "step_ms": run["step_ms"], "median_step_ms": med,
+              "rows_per_s": 65_536 / med * 1e3, "peak_gib": peak,
+              "device_busy_ms": busy, "idle_share": 1 - busy / med}
+    print(f"  fm train_batch: {json.dumps(fm_row)} ({card})")
+    for key, us, count in top:
+        print(f"    device {us:9.2f} us/call  x{count:4.1f}  {key}")
+    _, calls = _capture_backward(cell.run)
+    torch.cuda.synchronize()
+    out["backward_calls"] = calls
+    out["fm"] = fm_row
+    # -- the same cell on the CPU and the card at a small table -----------
+    small = fm_mod.FMConfig(total_vocab=5_000, n_fields=7)
+    rng = np.random.default_rng(2)
+    np_params = {"emb": (rng.normal(size=(small.table_rows, 10)) * 0.01
+                         ).astype(np.float32),
+                 "lin": (rng.normal(size=(small.table_rows, 1)) * 0.01
+                         ).astype(np.float32), "bias": np.float32(0.0)}
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = interop.fm_params_from_jax(small, np_params, device=dev,
+                                       requires_grad=True)
+        c = registry.build_fm_cell("train_batch", p, np.random.default_rng(3),
+                                   device=dev)
+        runs[dev] = (_fm_train_steps(smoke, c, 3, f"fm small on {dev}"), p)
+    (r_cpu, p_cpu), (r_card, p_card) = runs["cpu"], runs["cuda"]
+    perr = max(float((getattr(p_card, k).detach().cpu()
+                      - getattr(p_cpu, k).detach()).abs().max())
+               for k in ("emb", "lin", "bias"))
+    lerr = max(abs(a - b) for a, b in zip(r_cpu["losses"], r_card["losses"]))
+    smoke.check(lerr <= FM_TRAIN_LOSS_TOL and perr <= FM_TRAIN_PARAM_TOL,
+                f"fm small (5,120 x 10, 7 fields, 3 steps): card vs CPU losses "
+                f"within {FM_TRAIN_LOSS_TOL} (max {lerr!r}), params within "
+                f"{FM_TRAIN_PARAM_TOL} (max {perr!r})")
+    # -- the transformer family through its drivers -----------------------
+    lm = {}
+    for name in LM_REFERENCE:
+        _lm_reference_check(smoke, name)
+    for argv, label in LM_SERVE_RUNS:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = serve.main(argv)
+        launches = read_launches()
+        toks = res["tokens"]
+        arch = LM_CONFIGS[argv[argv.index("--arch") + 1]]
+        vocab = (reduced(arch) if "--reduced" in argv else arch).vocab
+        smoke.check(toks.shape == (4, 16) and toks.min() >= 0
+                    and toks.max() < vocab, f"serve {label}: 4 x 16 tokens in "
+                    f"[0, {vocab})")
+        lm[f"serve {label}"] = {
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms": res["decode_s"] * 1e3,
+            "decode_tokens_per_s": 64 / res["decode_s"],
+            "wall_s": time.perf_counter() - t0}
+        out["launches"][f"lm serve {label}"] = launches
+    for argv, label, batch, seq in LM_TRAIN_RUNS:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train.main(argv)
+        launches = read_launches()
+        losses = res["losses"]
+        smoke.check(len(losses) > 0 and all(math.isfinite(x) for x in losses),
+                    f"train {label}: {len(losses)} finite losses {losses}")
+        step_s = statistics.median(res["step_s"][1:] or res["step_s"])
+        lm[f"train {label}"] = {
+            "losses": losses, "step_s": res["step_s"], "median_step_s": step_s,
+            "tokens_per_s": batch * seq / step_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "wall_s": time.perf_counter() - t0}
+        out["launches"][f"lm train {label}"] = launches
+    wall, busy, top = _lm_idle(smoke, LM_CONFIGS["gemma2-2b"], 8, 256)
+    lm["train gemma2-2b"].update(profiled_step_ms=wall, device_busy_ms=busy,
+                                 idle_share=1 - busy / wall)
+    for key, us, count in top:
+        print(f"    train device {us:9.2f} us/call  x{count:4.1f}  {key}")
+    wall, busy, top = _decode_idle(smoke, LM_CONFIGS["gemma2-2b"], 4, 32)
+    lm["serve gemma2-2b"].update(profiled_decode_ms=wall, device_busy_ms=busy,
+                                 idle_share=1 - busy / wall)
+    for key, us, count in top:
+        print(f"    decode device {us:9.2f} us/call  x{count:4.1f}  {key}")
+    for label, row in lm.items():
+        print(f"  {label}: {json.dumps(row)} ({card})")
+    for label, launches in out["launches"].items():
+        if label.startswith("lm "):
+            smoke.check(not any(launches.values()),
+                        f"{label}: no kernel launches (the transformer "
+                        "reaches no TPU kernel)")
+    out["lm"] = lm
+    print(f"  {card}; phase L {time.perf_counter() - t_phase:.1f}s")
+    return out
+
+
 def _bench_ingest(smoke, pool, hi, hj, wt, label):
     torch = smoke.torch
     from repro_torch.kernels import matrix_ingest, matrix_ingest_plain
@@ -2294,6 +2643,68 @@ def _bench_bag(smoke, table, idx, weights, label):
            "sector_bound_ms": (fixed + sectors * 32) / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", **dev}
     print(f"  embedding_bag {label}: {json.dumps(row)}")
+    return row
+
+
+def _bench_bag_backward(smoke, call, label):
+    """``embedding_bag_backward`` on one call of the FM train step against
+    its plain version (float64 sums in field order) on the card: within
+    ``BACKWARD_REL_TOL`` of the largest gradient, the kernel's atomics
+    adding in no fixed order.  Library: ``F.embedding_bag(mode="sum")``'s
+    autograd backward, which covers the Σv term only."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import (embedding_bag_backward,
+                                     embedding_bag_backward_plain)
+
+    grad_out, idx, num_rows, table, grad_sq = call
+    b, f = idx.shape
+    d = grad_out.shape[1]
+
+    def kernel():
+        return embedding_bag_backward(grad_out, idx, num_rows, table, grad_sq)
+
+    def plain():
+        return embedding_bag_backward_plain(grad_out, idx, num_rows, table,
+                                            grad_sq)
+
+    out_k, out_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    tol = BACKWARD_REL_TOL * float(out_p.abs().max()) + 1e-9
+    smoke.check(err <= tol, f"embedding_bag_backward {label} within "
+                f"{BACKWARD_REL_TOL} of max |grad| + 1e-9 of the plain version "
+                f"(max abs diff {err!r}, allowed {tol!r})")
+    ms = time_ms(torch, kernel)
+    plain_ms = time_ms(torch, plain, iters=5, warmup=1)
+    weight = torch.zeros((num_rows, d), dtype=torch.float32, device="cuda",
+                         requires_grad=True)
+    bag = F.embedding_bag(idx, weight, mode="sum")
+
+    def library():
+        return torch.autograd.grad(bag, weight, grad_out, retain_graph=True)[0]
+
+    library_ms = time_ms(torch, library)
+    dev = {"device_ms": device_ms(torch, kernel),
+           "plain_device_ms": device_ms(torch, plain, iters=5),
+           "library_device_ms": device_ms(torch, library)}
+    # bytes this call's data needs: idx and grad_out (and grad_sq, and each
+    # distinct table row it gathers) read once, the dense gradient written
+    # once
+    rows = int(torch.unique(idx).numel())
+    nbytes = idx.numel() * 4 + b * d * 4 + num_rows * d * 4
+    if table is not None:
+        nbytes += b * d * 4 + rows * d * 4
+    row = {"shape": f"grad{[num_rows, d]} idx{list(idx.shape)}"
+                    f"{' + squared term' if table is not None else ''}",
+           "rows_hit": rows, "max_abs_err": err, "tolerance": tol, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_covers": ("the Σv term only" if table is not None
+                              else "the whole function"),
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           **dev}
+    print(f"  embedding_bag_backward {label}: {json.dumps(row)}")
     return row
 
 
@@ -2530,7 +2941,7 @@ def _summary(name, source, replaces, launches, main, rows):
                        for r in rows]}
 
 
-def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net):
+def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
     torch = smoke.torch
     import numpy as np
 
@@ -2649,6 +3060,13 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net):
             bag_rows[label] = labelled(_bench_bag(smoke, table, idx, weights,
                                                   label), label)
 
+    # embedding_bag_backward: both launches of a phase-L FM train step
+    bwd_rows = []
+    for call in train["backward_calls"]:
+        label = "fm train emb" if call[3] is not None else "fm train lin"
+        bwd_rows.append(labelled(_bench_bag_backward(smoke, call, label), label))
+    bwd_rows.sort(key=lambda r: r["label"])  # emb first: the main row
+
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
             "plain_device_ms", "library_device_ms")
 
@@ -2668,7 +3086,7 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net):
               **{f"network {k}": v for k, v in net["launches"].items()}}
     by_path = {"kmatrix": sl["launches"],
                **{k: v for k, v in cmp["launches"].items()},
-               "fm": fm["launches"], **served}
+               "fm": fm["launches"], **served, **train["launches"]}
     return [
         _summary("matrix_ingest", "src/repro_torch/kernels/csrc/matrix_ingest.cu",
                  "src/repro/kernels/matrix_ingest.py:56",
@@ -2707,6 +3125,13 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net):
                  "src/repro/kernels/embedding_bag.py:38",
                  {k: v["embedding_bag"] for k, v in by_path.items()},
                  p99, list(bag_rows.values())),
+        {**_summary("embedding_bag_backward",
+                    "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                    "src/repro/kernels/embedding_bag.py:38",
+                    {k: v["embedding_bag_backward"] for k, v in by_path.items()},
+                    bwd_rows[0], bwd_rows),
+         "tolerance": f"{BACKWARD_REL_TOL} of max |grad| + 1e-9",
+         "library_covers": bwd_rows[0]["library_covers"]},
     ]
 
 
@@ -2748,10 +3173,13 @@ def main() -> int:
                        serve, bg) if bg else None)
     if card:
         smoke.phase("K. distributed sketching", phase_distributed, smoke, card)
+    train = (smoke.phase("L. training", phase_train, smoke, card)
+             if card else None)
     kernels = (smoke.phase("B. kernels vs plain", phase_kernels, smoke, sl,
-                           cmp, reach, fm, serve, bg, net)
+                           cmp, reach, fm, serve, bg, net, train)
                if reach is not None and fm is not None and serve is not None
-               and bg is not None and net is not None else None)
+               and bg is not None and net is not None and train is not None
+               else None)
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

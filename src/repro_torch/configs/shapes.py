@@ -1,7 +1,7 @@
 """Input-shape sets, one per architecture family.
 
 The port's copy of the recsys part of ``repro/configs/shapes.py``; the LM
-and GNN shapes come with the model-zoo slice (ROADMAP.md, item 16).
+and GNN shapes come with the cells that use them (ROADMAP.md, §A).
 """
 from __future__ import annotations
 

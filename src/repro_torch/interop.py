@@ -30,6 +30,12 @@ JAX peer rebuilds them with ``tree_unflatten`` of its own.
 
 ``fm_params_from_jax`` does the same for the FM: the JAX package's params
 dict (``emb``, ``lin``, ``bias``) as numpy arrays becomes the port's ``FM``.
+``lm_params_from_jax`` carries a transformer's params tree (the same
+layout on both sides), and ``train_state_from_jax`` a whole JAX
+``TrainState`` (params and AdamW moments, numpy leaves) into a port
+``TrainState`` template, FM or LM, keyed as the checkpoint store keys
+them.  bfloat16 leaves (``ml_dtypes`` arrays) travel as their raw 2-byte
+words.
 """
 from __future__ import annotations
 
@@ -238,12 +244,72 @@ def snapshot_state_to_jax(state: dict) -> dict:
     }
 
 
-def fm_params_from_jax(cfg: FMConfig, np_params: dict, *, device="cuda") -> FM:
+def fm_params_from_jax(cfg: FMConfig, np_params: dict, *, device="cuda",
+                       requires_grad: bool = False) -> FM:
     """The port's ``FM`` holding copies of the JAX package's FM params
-    (``{"emb", "lin", "bias"}`` as numpy arrays) on ``device``."""
+    (``{"emb", "lin", "bias"}`` as numpy arrays) on ``device``; its
+    parameters require grad when ``requires_grad`` (training)."""
     missing = {"emb", "lin", "bias"} - set(np_params)
     if missing:
         raise KeyError(f"FM params missing {sorted(missing)}")
     return FM(cfg, *(torch.as_tensor(np.array(np_params[k], dtype=np.float32),
                                      device=device)
-                     for k in ("emb", "lin", "bias")))
+                     for k in ("emb", "lin", "bias")),
+              requires_grad=requires_grad)
+
+
+def array_tensor(arr, device) -> torch.Tensor:
+    """A tensor copy of a numpy array; bfloat16 (``ml_dtypes``, kind ``V``)
+    from its raw 2-byte words."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        words = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(words).view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(arr), device=device)
+
+
+def lm_params_from_jax(cfg, np_params: dict, *, device="cuda",
+                       requires_grad: bool = True) -> dict:
+    """The port's transformer params (the JAX tree layout: ``embed``,
+    ``layers``, ``tail``, ``ln_final``, ``lm_head`` unless tied) holding
+    copies of the JAX package's, given as numpy arrays, on ``device``."""
+    want = {"embed", "layers", "tail", "ln_final"} | (
+        set() if cfg.tie_embed else {"lm_head"})
+    if set(np_params) != want:
+        raise KeyError(f"{cfg.name} params must hold {sorted(want)}, got "
+                       f"{sorted(np_params)}")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        t = array_tensor(x, device)
+        return t.requires_grad_(requires_grad and t.is_floating_point())
+
+    return conv(np_params)
+
+
+class _KeyedLeaves(dict):
+    """Leaves keyed as the checkpoint store keys them, in the shape of an
+    opened ``npz`` (``.files``), for the store's restore walk."""
+
+    @property
+    def files(self):
+        return list(self)
+
+
+def train_state_from_jax(np_state, template):
+    """The port's ``TrainState`` ``template`` (FM or LM) filled with a JAX
+    ``TrainState`` whose leaves are numpy arrays (``jax.tree.map(
+    np.asarray, state)``): a module template is filled in place, other
+    leaves are fresh tensors on their template's devices.  Raises on a
+    leaf the JAX state lacks or a shape that differs."""
+    from repro_torch.checkpoint import store
+
+    leaves = _KeyedLeaves(store._flatten(np_state))
+    filled: list = []
+    state = store._unflatten(leaves, template, "", filled)
+    if filled:
+        raise KeyError(f"the JAX state lacks {filled}")
+    return state

@@ -14,6 +14,8 @@
                    for layers that fit one block (csrc/reach_closure.cu)
   embedding_bag  — fixed-arity row gather + sum, the FM's lookups
                    (csrc/embedding_bag.cu)
+  embedding_bag_backward — the bag's table gradient, a scatter-add with
+                   the FM's squared term, for training (same file)
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``).  A CUDA tensor launches the kernel;
@@ -21,7 +23,13 @@ a CPU tensor takes the plain version.  ``build`` compiles the sources with
 ``nvcc`` at first use; ``csrc/sketch_addr.cuh`` holds the hashing and
 routing that the two edge kernels share.
 """
-from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag,
+    embedding_bag_backward,
+    embedding_bag_backward_plain,
+    embedding_bag_plain,
+    sum_and_square_bags,
+)
 from repro_torch.kernels.matrix_ingest import (
     matrix_ingest,
     matrix_ingest_edges,
@@ -41,7 +49,9 @@ from repro_torch.kernels.reach_closure import (
     reach_step_plain,
 )
 
-__all__ = ["embedding_bag", "embedding_bag_plain", "matrix_ingest",
+__all__ = ["embedding_bag", "embedding_bag_backward",
+           "embedding_bag_backward_plain", "embedding_bag_plain",
+           "sum_and_square_bags", "matrix_ingest",
            "matrix_ingest_edges", "matrix_ingest_edges_plain",
            "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_edges",
            "matrix_lookup_edges_plain", "matrix_lookup_plain",

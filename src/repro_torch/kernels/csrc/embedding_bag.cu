@@ -1,4 +1,5 @@
-// embedding_bag: fixed-arity embedding bag, a row gather and a sum per bag.
+// embedding_bag: fixed-arity embedding bag, a row gather and a sum per bag;
+// embedding_bag_backward (below): its gradient with respect to the table.
 //
 // Replaces: src/repro/kernels/embedding_bag.py, `embedding_bag` (Pallas body
 // `_bag_kernel`).  The TPU kernel walks a (B, F) grid with the field axis
@@ -195,6 +196,89 @@ void launch(const float* table, const int* idx, const float* w, float* out,
     }
 }
 
+// ---------------------------------------------------------------- backward --
+//
+// embedding_bag_backward: the gradient of the unweighted bag with respect
+// to its table, for training the FM.  No TPU kernel has it: the Pallas
+// `embedding_bag` has no custom_vjp, and the JAX package trains through the
+// plain gather `params["emb"][rows]`, whose transpose XLA emits as a
+// scatter-add.  This kernel is that scatter-add, with the FM's squared
+// table folded in:
+//
+//     grad[idx[b, f], d] += grad_out[b, d]
+//                           (+ 2 table[idx[b, f], d] grad_sq[b, d])
+//
+// grad_out f32[B, D], idx int32[B, F] in [0, V), table f32[V, D] and
+// grad_sq f32[B, D] both given or both null, grad f32[V, D] zeroed by the
+// wrapper.  With the squared term, one pass over the B F gathered rows
+// gives the whole gradient of a table read by a Σv bag and a Σv² bag (the
+// bag of table * table): d(Σv²)/dv = 2 v.  The [B, F, D] rows are never
+// formed.
+//
+// Order of addition: float atomicAdd (its result unused, so the compiler
+// emits red.global.add.f32), in no fixed order.  Each contribution is
+// rounded once, fmaf(2 t, g_sq, g) (2 t is exact), so it is bit-equal to
+// the plain version's; only the order of the sum over the (b, f) that hit
+// one row differs, and the plain version sums in float64 and rounds once.
+// A row hit k times differs from it by at most about k float32 roundings
+// of the running sum; the tests and chip_smoke.py state the tolerance.
+//
+// Bound on this card: bytes.  It reads idx, grad_out (and grad_sq, and
+// the gathered table rows) and writes the dense gradient, whose zeroing by
+// the wrapper is most of the bytes at the FM's shapes (400 MB for a
+// 10,000,384 x 10 table, against about 60 MB read).  Contention is low: at
+// B = 65,536 the smallest field holds 38,573 rows, so a row takes a few
+// atomics at most.  Design: one thread per (b, f) pair and V neighbouring
+// elements of its row (V = 4, 2 or 1, as the forward chooses), a
+// grid-stride loop; the DV threads of one pair are neighbours, so their
+// idx, grad_out and table loads coalesce.
+template <int V, bool kSq>
+__global__ void embedding_bag_backward_kernel(
+    const float* __restrict__ g, const int* __restrict__ idx,
+    const float* __restrict__ table, const float* __restrict__ gsq,
+    float* __restrict__ grad, int B, int F, int D) {
+    using T = typename Vec<V>::T;
+    const int DV = D / V;
+    const long long n = (long long)B * F * DV;
+    const T* gv = reinterpret_cast<const T*>(g);
+    const T* sv = reinterpret_cast<const T*>(gsq);
+    const T* rows = reinterpret_cast<const T*>(table);
+    for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+         e += (long long)gridDim.x * blockDim.x) {
+        const long long pair = e / DV;
+        const int dv = (int)(e - pair * DV);
+        const long long b = pair / F;
+        const long long row = __ldg(idx + pair);
+        T c = __ldg(gv + b * DV + dv);
+        if (kSq) {
+            const T t = __ldcg(rows + row * DV + dv);
+            const T s = __ldg(sv + b * DV + dv);
+            const float* tf = reinterpret_cast<const float*>(&t);
+            const float* sf = reinterpret_cast<const float*>(&s);
+            float* cf = reinterpret_cast<float*>(&c);
+#pragma unroll
+            for (int i = 0; i < V; ++i) cf[i] = fmaf(2.f * tf[i], sf[i], cf[i]);
+        }
+        const float* cf = reinterpret_cast<const float*>(&c);
+        float* dst = grad + row * D + (long long)dv * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) atomicAdd(dst + i, cf[i]);
+    }
+}
+
+template <int V>
+void launch_backward(const float* g, const int* idx, const float* table,
+                     const float* gsq, float* grad, int B, int F, int D,
+                     int blocks, int threads, cudaStream_t s) {
+    if (table != nullptr) {
+        embedding_bag_backward_kernel<V, true><<<blocks, threads, 0, s>>>(
+            g, idx, table, gsq, grad, B, F, D);
+    } else {
+        embedding_bag_backward_kernel<V, false><<<blocks, threads, 0, s>>>(
+            g, idx, nullptr, nullptr, grad, B, F, D);
+    }
+}
+
 }  // namespace
 
 // The wrapper's plan: vec (1, 2 or 4; D % vec == 0 and the table 4 vec-byte
@@ -222,4 +306,31 @@ extern "C" int embedding_bag_launch(const void* table, const void* idx,
 
 extern "C" const char* embedding_bag_error(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// grad (f32[V, D], zeroed) += the scatter of grad_out (f32[B, D]) over idx
+// (int32[B, F]), plus 2 table[row] grad_sq[b] when table (f32[V, D]) and
+// grad_sq (f32[B, D]) are given.  vec: 1, 2 or 4, dividing D, every
+// pointer 4 vec-byte aligned (the wrapper decides).
+extern "C" int embedding_bag_backward_launch(const void* grad_out,
+                                             const void* idx,
+                                             const void* table,
+                                             const void* grad_sq, void* grad,
+                                             int B, int F, int D, int vec,
+                                             int blocks, int threads,
+                                             void* stream) {
+    if ((long long)B * F * D == 0) return 0;
+    const float* g = (const float*)grad_out;
+    const int* i = (const int*)idx;
+    const float* t = (const float*)table;
+    const float* s = (const float*)grad_sq;
+    float* o = (float*)grad;
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (vec) {
+        case 1: launch_backward<1>(g, i, t, s, o, B, F, D, blocks, threads, st); break;
+        case 2: launch_backward<2>(g, i, t, s, o, B, F, D, blocks, threads, st); break;
+        case 4: launch_backward<4>(g, i, t, s, o, B, F, D, blocks, threads, st); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return (int)cudaGetLastError();
 }

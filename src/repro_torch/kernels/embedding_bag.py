@@ -1,5 +1,5 @@
-"""Fixed-arity embedding bag: the hand-written CUDA kernel, its wrapper and
-its plain version.
+"""Fixed-arity embedding bag and its gradient: the hand-written CUDA
+kernels, their wrappers and their plain versions.
 
     out[b] = sum_f w[b, f] * table[idx[b, f]]
 
@@ -14,6 +14,18 @@ for its design; ``bag_plan`` picks its vector width, bags per block and
 staging from the shapes and the table's alignment.  Kernel, plain version
 and the Pallas kernel sum in the same order with one rounding per step, so
 the three agree bit for bit.
+
+The gradient.  ``embedding_bag_backward`` scatters a bag's output gradient
+back over its rows, ``grad[idx[b, f]] += grad_out[b]``, optionally with
+the FM's squared term ``2 table[idx[b, f]] grad_sq[b]``; it has a kernel
+of its own in the same source (float atomics, so its sums run in no fixed
+order) and a plain version that sums in float64 in field order.  The
+autograd path: ``embedding_bag`` on a table that requires grad (grad mode
+on) returns a bag whose backward is that kernel, and
+``sum_and_square_bags`` gives the FM's Σv and Σv² bags with one backward
+launch for the table's whole gradient.  The bag weights' gradient has no
+caller: a weighted bag refuses grad (ROADMAP.md, §B, "the weighted bag's
+backward").
 """
 from __future__ import annotations
 
@@ -54,11 +66,12 @@ def _check(table: torch.Tensor, idx: torch.Tensor,
     if idx.shape[0] * table.shape[1] >= 2**31:
         raise ValueError(f"B * D = {idx.shape[0]} * {table.shape[1]} must be "
                          "below 2^31")
-    if torch.is_grad_enabled() and any(t.requires_grad for _, t in named):
+    if (weights is not None and torch.is_grad_enabled()
+            and any(t.requires_grad for _, t in named)):
         raise NotImplementedError(
-            "embedding_bag has no backward yet (FM training is a later "
-            "slice); call it under torch.no_grad() or on tensors that do "
-            "not require grad")
+            "a weighted embedding_bag has no backward (ROADMAP.md, §B, "
+            "\"the weighted bag's backward\"); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
 
 
 def _check_range(v: int, idx: torch.Tensor) -> None:
@@ -141,18 +154,8 @@ def _launcher():
     return lib, fn
 
 
-def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
-                  weights: torch.Tensor | None = None) -> torch.Tensor:
-    """``out[b] = sum_f weights[b, f] * table[idx[b, f]]`` -> a new f32[B, D].
-
-    A CUDA table launches the kernel; a CPU table takes the plain version.
-    Precondition: idx lies in ``[0, V)``, as the FM's ``_flat_ids`` gives
-    it.  On the CPU the range is checked and a breach raises
-    ``ValueError``; on the card only shapes and types are checked, since a
-    range check there would wait for the device.  No tensor may require
-    grad while grad mode is on: there is no backward kernel yet.
-    """
-    _check(table, idx, weights)
+def _bag(table: torch.Tensor, idx: torch.Tensor,
+         weights: torch.Tensor | None) -> torch.Tensor:
     if table.device.type == "cpu":
         _check_range(table.shape[0], idx)
         return embedding_bag_plain(table, idx, weights)
@@ -172,4 +175,195 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def _tracks_grad(table: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and table.requires_grad
+
+
+class _Bag(torch.autograd.Function):
+    """An unweighted bag whose backward is ``embedding_bag_backward``."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return _bag(table, idx, None)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (idx,) = ctx.saved_tensors
+        return embedding_bag_backward(grad_out.contiguous(), idx,
+                                      ctx.rows), None
+
+
+class _SumAndSquareBags(torch.autograd.Function):
+    """The bags of ``table`` and of ``squared`` (= table * table, given, no
+    grad); one ``embedding_bag_backward`` launch gives ``table``'s gradient
+    through both."""
+
+    @staticmethod
+    def forward(ctx, table, squared, idx):
+        ctx.save_for_backward(table, idx)
+        return _bag(table, idx, None), _bag(squared, idx, None)
+
+    @staticmethod
+    def backward(ctx, grad_sum, grad_sq):
+        table, idx = ctx.saved_tensors
+        b, d = idx.shape[0], table.shape[1]
+        zero = torch.zeros((b, d), dtype=torch.float32, device=table.device)
+        grad_sum = zero if grad_sum is None else grad_sum.contiguous()
+        grad_sq = zero if grad_sq is None else grad_sq.contiguous()
+        return embedding_bag_backward(grad_sum, idx, table.shape[0], table,
+                                      grad_sq), None, None
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``out[b] = sum_f weights[b, f] * table[idx[b, f]]`` -> a new f32[B, D].
+
+    A CUDA table launches the kernel; a CPU table takes the plain version.
+    Precondition: idx lies in ``[0, V)``, as the FM's ``_flat_ids`` gives
+    it.  On the CPU the range is checked and a breach raises
+    ``ValueError``; on the card only shapes and types are checked, since a
+    range check there would wait for the device.  An unweighted bag of a
+    table that requires grad (grad mode on) is differentiable in the
+    table: its backward is ``embedding_bag_backward``.  A weighted bag
+    refuses grad.
+    """
+    _check(table, idx, weights)
+    if weights is None and _tracks_grad(table):
+        return _Bag.apply(table, idx)
+    return _bag(table, idx, weights)
+
+
 embedding_bag.launches = 0
+
+
+def sum_and_square_bags(table: torch.Tensor, squared: torch.Tensor,
+                        idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ table rows, Σ squared rows) per bag, two ``embedding_bag``
+    launches; ``squared`` must hold ``table * table`` (the FM keeps it as
+    a buffer).  When ``table`` requires grad (grad mode on), the pair's
+    backward is one ``embedding_bag_backward`` launch with the squared
+    term, ``squared`` taking no gradient."""
+    _check(table, idx, None)
+    _check(squared, idx, None)
+    if squared.shape != table.shape:
+        raise ValueError(f"squared must be {tuple(table.shape)}, got "
+                         f"{tuple(squared.shape)}")
+    if _tracks_grad(table):
+        return _SumAndSquareBags.apply(table, squared, idx)
+    return _bag(table, idx, None), _bag(squared, idx, None)
+
+
+# ---------------------------------------------------------------- backward --
+
+BACKWARD_THREADS = 256
+BACKWARD_BLOCKS_PER_SM = 16  # the grid-stride loop's blocks per SM
+
+
+def _check_backward(grad_out, idx, num_rows, table, grad_sq) -> None:
+    if grad_out.dim() != 2 or idx.dim() != 2 or grad_out.shape[0] != idx.shape[0]:
+        raise ValueError(f"grad_out must be [B, D] and idx [B, F], got "
+                         f"{tuple(grad_out.shape)} and {tuple(idx.shape)}")
+    if num_rows < 1:
+        raise ValueError(f"num_rows must be positive, got {num_rows}")
+    if (table is None) != (grad_sq is None):
+        raise ValueError("table and grad_sq come together or not at all")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    named = [("grad_out", grad_out), ("idx", idx)]
+    if table is not None:
+        d = grad_out.shape[1]
+        if tuple(table.shape) != (num_rows, d):
+            raise ValueError(f"table must be {[num_rows, d]}, got "
+                             f"{list(table.shape)}")
+        if tuple(grad_sq.shape) != tuple(grad_out.shape):
+            raise ValueError(f"grad_sq must be {tuple(grad_out.shape)}, got "
+                             f"{tuple(grad_sq.shape)}")
+        named += [("table", table), ("grad_sq", grad_sq)]
+    for name, t in named:
+        if name != "idx" and t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != grad_out.device:
+            raise ValueError(f"{name} is on {t.device}, grad_out on "
+                             f"{grad_out.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def embedding_bag_backward_plain(grad_out: torch.Tensor, idx: torch.Tensor,
+                                 num_rows: int, table: torch.Tensor | None = None,
+                                 grad_sq: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """Plain PyTorch version: field f of every bag in order from zero, each
+    contribution rounded once as the kernel rounds it (``fmaf(2 t, g_sq,
+    g)``), summed in float64 and rounded to float32 once at the end."""
+    acc = torch.zeros((num_rows, grad_out.shape[1]), dtype=torch.float64,
+                      device=grad_out.device)
+    for j in range(idx.shape[1]):
+        rows = idx[:, j].long()
+        c = grad_out if table is None else _fma(2 * table[rows], grad_sq,
+                                                 grad_out)
+        acc.index_add_(0, rows, c.double())
+    return acc.float()
+
+
+@functools.cache
+def _backward_launcher():
+    lib = build.load("embedding_bag")
+    fn = lib.embedding_bag_backward_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    return lib, fn
+
+
+def backward_vec(d: int, *ptrs: int) -> int:
+    """Floats per thread and access: the widest of 4, 2, 1 that divides D
+    and every pointer's alignment."""
+    return next(v for v in (4, 2, 1)
+                if d % v == 0 and all(p % (4 * v) == 0 for p in ptrs))
+
+
+def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor,
+                           num_rows: int, table: torch.Tensor | None = None,
+                           grad_sq: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """The table gradient of an unweighted bag -> a new f32[num_rows, D]:
+    ``grad[idx[b, f]] += grad_out[b] (+ 2 table[idx[b, f]] grad_sq[b])``.
+
+    A CUDA ``grad_out`` zeroes the gradient and launches the kernel (its
+    sums in no fixed order); a CPU one takes the plain version.  idx must
+    lie in ``[0, num_rows)`` (checked on the CPU only, as for the bag).
+    """
+    _check_backward(grad_out, idx, num_rows, table, grad_sq)
+    if grad_out.device.type == "cpu":
+        _check_range(num_rows, idx)
+        return embedding_bag_backward_plain(grad_out, idx, num_rows, table,
+                                            grad_sq)
+    if grad_out.device.type != "cuda":
+        raise ValueError("embedding_bag_backward runs on cuda or cpu, not "
+                         f"{grad_out.device}")
+    b, f = idx.shape
+    d = grad_out.shape[1]
+    grad = torch.zeros((num_rows, d), dtype=torch.float32,
+                       device=grad_out.device)
+    ptrs = [t.data_ptr() for t in (grad_out, grad, table, grad_sq)
+            if t is not None]
+    vec = backward_vec(d, *ptrs)
+    work = b * f * (d // vec)
+    blocks = max(1, min(-(-work // BACKWARD_THREADS),
+                        build.SMS * BACKWARD_BLOCKS_PER_SM))
+    lib, fn = _backward_launcher()
+    with build.on_device(grad_out.device) as stream:
+        code = fn(grad_out.data_ptr(), idx.data_ptr(),
+                  None if table is None else table.data_ptr(),
+                  None if grad_sq is None else grad_sq.data_ptr(),
+                  grad.data_ptr(), b, f, d, vec, blocks, BACKWARD_THREADS,
+                  stream)
+    build.check(lib, "embedding_bag", code)
+    build.count_launch(embedding_bag_backward)
+    return grad
+
+
+embedding_bag_backward.launches = 0

@@ -4,8 +4,11 @@ finite outputs — the CLI face of ``repro.launch.smoke`` for the port.
   python -m repro_torch.launch.smoke --arch fm                # on the card
   python -m repro_torch.launch.smoke --arch fm --device cpu   # plain versions
 
-Only the FM is ported; the other architectures of the JAX package's smoke
-are refused with a pointer to ROADMAP.md (item 16, the model zoo).
+  python -m repro_torch.launch.smoke --arch gemma2-2b --device cpu
+
+The FM and the five LM architectures are ported; the GNN architectures of
+the JAX package's smoke are refused with a pointer to ROADMAP.md (§A, the
+GNN family).
 """
 from __future__ import annotations
 
@@ -18,9 +21,26 @@ import torch
 from repro_torch.launch.stream_ingest import require_device
 
 # the JAX package's smoke architectures that the port does not have yet
-NOT_PORTED = ("gemma2-2b", "internlm2-20b", "gemma3-27b", "mixtral-8x7b",
-              "grok-1-314b", "gatedgcn", "graphcast", "nequip",
-              "equiformer-v2")
+NOT_PORTED = ("gatedgcn", "graphcast", "nequip", "equiformer-v2")
+
+
+def smoke_lm(name: str, device) -> dict:
+    """``smoke_lm`` of the JAX package: the reduced config, tokens (2, 64)
+    as both input and labels, a finite loss."""
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.models.transformer import model as tmodel
+
+    cfg = reduced(LM_CONFIGS[name])
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tmodel.init_params(cfg, gen, device, requires_grad=False)
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=device,
+                         dtype=torch.int32)
+    with torch.no_grad():
+        loss, metrics = tmodel.lm_loss(cfg, params, toks, toks)
+    if not torch.isfinite(loss):
+        raise SystemExit(f"error: {name} loss is not finite ({float(loss)})")
+    return {"loss": float(loss), "ce": float(metrics["ce"]),
+            "device": str(device)}
 
 
 def smoke_recsys(name: str, device) -> dict:
@@ -40,7 +60,9 @@ def smoke_recsys(name: str, device) -> dict:
     return {"bce": loss, "device": str(device)}
 
 
-FAMILIES = {"fm": smoke_recsys}
+FAMILIES = {"gemma2-2b": smoke_lm, "internlm2-20b": smoke_lm,
+            "gemma3-27b": smoke_lm, "mixtral-8x7b": smoke_lm,
+            "grok-1-314b": smoke_lm, "fm": smoke_recsys}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,7 +79,7 @@ def main(argv=None) -> None:
     if args.arch not in FAMILIES:
         raise SystemExit(
             f"error: {args.arch} is not ported to PyTorch yet; see "
-            "ROADMAP.md, item 16 (the model zoo). Ported: "
+            "ROADMAP.md, §A (the GNN family). Ported: "
             f"{', '.join(sorted(FAMILIES))}")
     device = require_device(args.device)
     t0 = time.time()

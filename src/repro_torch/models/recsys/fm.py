@@ -23,10 +23,19 @@ since: when its version counter (bumped by every in-place update through
 was made from.  Writes through ``emb.data`` bypass the version counter,
 as they bypass autograd, and are not seen.
 
+Training.  The JAX package differentiates ``forward``'s plain gather; the
+port's forward is the bag kernel, so its parameters (when they require
+grad) train through the bags' backward, ``embedding_bag_backward``: one
+launch gives ``emb``'s gradient through the Σv and Σv² bags (the squared
+table's gradient, 2 v ḡ per gathered row, folded in, so ``emb * emb`` is
+never formed under autograd), one more at D = 1 gives ``lin``'s, and
+``bias``'s is a plain sum: 3 bag launches and 2 backward launches a step.
+The optimizer updates ``emb`` in place through the parameter itself, so
+the next forward derives the squared table again.
+
 Vocab: per-field sizes follow a Criteo-like power law (few huge id fields,
 many small categoricals), hashed into a single fused table with per-field
-offsets: one bag for all fields.  Serving only: training, and a backward
-for the kernel, come in a later slice (ROADMAP.md, item 16).
+offsets: one bag for all fields.
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import embedding_bag, sum_and_square_bags
 from repro_torch.models.common import normal_init
 
 
@@ -71,10 +80,11 @@ class FM(nn.Module):
     """The FM's parameters: ``emb`` f32[rows, k] (2nd-order factors),
     ``lin`` f32[rows, 1] (1st-order weights) and ``bias`` f32[], the JAX
     package's params dict as a module, plus the squared-table buffer.
-    The parameters do not require grad: there is no backward yet."""
+    The parameters require grad only when ``requires_grad`` (training);
+    serving leaves them without."""
 
     def __init__(self, cfg: FMConfig, emb: torch.Tensor, lin: torch.Tensor,
-                 bias: torch.Tensor):
+                 bias: torch.Tensor, *, requires_grad: bool = False):
         super().__init__()
         rows, k = cfg.table_rows, cfg.embed_dim
         for name, t, shape in (("emb", emb, (rows, k)), ("lin", lin, (rows, 1)),
@@ -83,9 +93,9 @@ class FM(nn.Module):
                 raise ValueError(f"{name} must be {list(shape)} for {cfg}, "
                                  f"got {list(t.shape)}")
         self.cfg = cfg
-        self.emb = nn.Parameter(emb, requires_grad=False)
-        self.lin = nn.Parameter(lin, requires_grad=False)
-        self.bias = nn.Parameter(bias, requires_grad=False)
+        self.emb = nn.Parameter(emb, requires_grad=requires_grad)
+        self.lin = nn.Parameter(lin, requires_grad=requires_grad)
+        self.bias = nn.Parameter(bias, requires_grad=requires_grad)
         self.register_buffer("emb_sq", None, persistent=False)
         self._emb_sq_of = None
 
@@ -103,14 +113,15 @@ class FM(nn.Module):
         return forward(self.cfg, self, ids)
 
 
-def init_params(cfg: FMConfig, generator: torch.Generator,
-                device="cuda") -> FM:
+def init_params(cfg: FMConfig, generator: torch.Generator, device="cuda",
+                *, requires_grad: bool = False) -> FM:
     """Random FM parameters on ``device`` (``generator`` lives there too)."""
     rows = cfg.table_rows
     return FM(cfg,
               normal_init(generator, (rows, cfg.embed_dim), 0.01, device=device),
               normal_init(generator, (rows, 1), 0.01, device=device),
-              torch.zeros((), dtype=torch.float32, device=device))
+              torch.zeros((), dtype=torch.float32, device=device),
+              requires_grad=requires_grad)
 
 
 @functools.cache
@@ -130,8 +141,8 @@ def _flat_ids(cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
 def _score(cfg: FMConfig, params: FM, ids: torch.Tensor):
     """(logits [B], Σv [B, k]) of int32[B, F] ids: three bags."""
     rows = _flat_ids(cfg, ids)
-    sum_v = embedding_bag(params.emb, rows)
-    sum_sq = embedding_bag(params.squared_table(), rows)
+    sum_v, sum_sq = sum_and_square_bags(params.emb, params.squared_table(),
+                                        rows)
     lin = embedding_bag(params.lin, rows)[:, 0]
     pairwise = 0.5 * (sum_v * sum_v - sum_sq).sum(dim=-1)
     return params.bias + lin + pairwise, sum_v

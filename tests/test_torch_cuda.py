@@ -720,3 +720,155 @@ def test_background_query_serve_on_card_equals_cpu(card, shards):
         assert gates.layout_counters_equal(
             gpu["tenant"].merged_snapshot().sketch,
             cpu["tenant"].merged_snapshot().sketch)
+
+
+# ------------------------------------------------- training on the card --
+# embedding_bag_backward: float atomics add in no fixed order.  Against the
+# plain version (float64 sums, one rounding) an element hit k times by
+# contributions c_i may differ by the recursive-summation bound,
+# k 2^-24 sum |c_i| (k - 1 roundings of the running sum, one of the plain
+# version's result); at the FM's shapes k is a few and that is far below
+# 1e-6 of max |grad|, the tolerance chip_smoke.py holds the FM's calls to
+
+def _backward_inputs(card, v, d, b, f, squared, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, v, (b, f)).astype(np.int32)
+    idx[:, 1 % f] = idx[:, 0]  # a row twice in every bag
+    g = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=card)
+    table = gs = None
+    if squared:
+        table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                                device=card)
+        gs = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                             device=card)
+    return g, torch.as_tensor(idx, device=card), table, gs
+
+
+def _summation_bound(g, idx, v, table, gs):
+    """k 2^-24 sum |c| per element, from the contributions in float64."""
+    rows = idx.long()
+    c = g.double()[:, None, :].expand(-1, idx.shape[1], -1)
+    if table is not None:
+        c = c + 2 * table.double()[rows] * gs.double()[:, None, :]
+    d = g.shape[1]
+    mag = torch.zeros((v, d), dtype=torch.float64, device=g.device)
+    mag.index_add_(0, rows.reshape(-1), c.abs().reshape(-1, d))
+    hits = torch.bincount(rows.reshape(-1), minlength=v).double()[:, None]
+    return hits * 2.0**-24 * mag
+
+
+def _assert_within_summation_bound(out, g, idx, v, table, gs):
+    expect = eb.embedding_bag_backward_plain(g, idx, v, table, gs)
+    torch.cuda.synchronize()
+    bound = _summation_bound(g, idx, v, table, gs)
+    assert bool(((out.double() - expect.double()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("squared", [False, True], ids=["sum", "squared"])
+@pytest.mark.parametrize("v,d,b,f", [(1000, 10, 512, 39), (1000, 1, 333, 39),
+                                     (50, 128, 7, 2), (1, 3, 1, 1),
+                                     (17, 10, 101, 5), (5, 16, 4096, 7),
+                                     (300, 2, 65, 3)])
+def test_embedding_bag_backward_kernel_within_tolerance(card, v, d, b, f,
+                                                        squared):
+    g, idx, table, gs = _backward_inputs(card, v, d, b, f, squared, v + d + b)
+    before = eb.embedding_bag_backward.launches
+    out = eb.embedding_bag_backward(g, idx, v, table, gs)
+    assert eb.embedding_bag_backward.launches == before + 1
+    assert out.shape == (v, d) and out.dtype == torch.float32
+    _assert_within_summation_bound(out, g, idx, v, table, gs)
+
+
+@pytest.mark.parametrize("d", [2, 4, 10])
+def test_embedding_bag_backward_unaligned_takes_the_scalar_path(card, d):
+    g, idx, table, gs = _backward_inputs(card, 40, d, 64, 5, True, d)
+    g_off = torch.empty(64 * d + 1, device=card)[1:].view(64, d)
+    g_off.copy_(g)
+    assert eb.backward_vec(d, g_off.data_ptr()) == 1
+    out = eb.embedding_bag_backward(g_off, idx, 40, table, gs)
+    _assert_within_summation_bound(out, g, idx, 40, table, gs)
+
+
+def test_fm_train_steps_on_card_equal_cpu(card):
+    """Three FM train steps at a small table on the card and on the CPU
+    from the same weights and batch: 3 bag and 2 backward launches a step
+    on the card, losses within 1e-6, parameters within 1e-6 (the
+    backward's order, carried by Adam into updates of at most lr)."""
+    cfg = tfm.FMConfig(total_vocab=5_000, n_fields=7)
+    rng = np.random.default_rng(0)
+    np_params = {"emb": (rng.normal(size=(cfg.table_rows, 10)) * 0.01).astype(np.float32),
+                 "lin": (rng.normal(size=(cfg.table_rows, 1)) * 0.01).astype(np.float32),
+                 "bias": np.float32(0.0)}
+    runs = {}
+    for dev in ("cpu", card):
+        p = interop.fm_params_from_jax(cfg, np_params, device=dev,
+                                       requires_grad=True)
+        cell = registry.build_fm_cell("train_batch", p, np.random.default_rng(1),
+                                      device=dev)
+        losses = []
+        for _ in range(3):
+            embedding_bag.launches = eb.embedding_bag_backward.launches = 0
+            losses.append(float(cell.run()["loss"]))
+            if dev is card:
+                assert embedding_bag.launches == 3
+                assert eb.embedding_bag_backward.launches == 2
+        runs[str(dev)] = (losses, p)
+    (lc, pc), (lg, pg) = runs["cpu"], runs["cuda"]
+    assert max(abs(a - b) for a, b in zip(lc, lg)) <= 1e-6
+    for k in ("emb", "lin", "bias"):
+        err = (getattr(pg, k).detach().cpu() - getattr(pc, k).detach()).abs().max()
+        assert float(err) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "mixtral-8x7b"])
+def test_reduced_lm_loss_and_gradients_on_card_equal_cpu(card, name):
+    """A reduced config (float32) on the card and the CPU from the same
+    weights and batch: loss within rtol 1e-5, every gradient within 1e-5 of
+    its leaf's max |grad| + 1e-8 (cuBLAS and the CPU sum in other orders;
+    TF32 off).  Updated parameters are not compared: Adam's first step
+    moves an entry by about lr whatever its gradient's size, so a gradient
+    near 1e-8 turns a last-bit difference into one of order lr."""
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models.transformer import model as tmodel
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(LM_CONFIGS[name])
+    cpu = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = tree_map(lambda x: x.detach().to(card).requires_grad_(), cpu)
+    out = []
+    for params, dev in ((cpu, "cpu"), (on_card, card)):
+        batch = synthetic_lm_batch(np.random.default_rng(3), 4, 32, cfg.vocab,
+                                   device=dev)
+        loss, _ = tmodel.lm_loss(cfg, params, batch["tokens"], batch["labels"])
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out.append((loss.item(), [x.cpu() for x in grads]))
+    (l0, g0), (l1, g1) = out
+    assert abs(l0 - l1) <= 1e-5 * abs(l0)
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max()) + 1e-8
+
+
+def test_bf16_reduced_lm_serves_and_trains_on_card(card):
+    import dataclasses
+
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import model as tmodel
+    from repro_torch.training import AdamWConfig, init_train_state, make_train_step
+    from repro_torch.training.steps import lm_loss_fn
+
+    cfg = dataclasses.replace(reduced(LM_CONFIGS["gemma3-27b"]), dtype="bfloat16",
+                              remat=True)
+    params = tmodel.init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                                card)
+    assert params["embed"].dtype == torch.bfloat16
+    toks = torch.randint(0, cfg.vocab, (2, 16), device=card, dtype=torch.int32)
+    out = serve.generate(cfg, params, toks, 4)
+    assert out["tokens"].shape == (2, 4)
+    opt = AdamWConfig()
+    state, m = make_train_step(lm_loss_fn(cfg), opt)(
+        init_train_state(params, opt), {"tokens": toks, "labels": toks})
+    assert torch.isfinite(m["loss"]) and int(state.opt.step) == 1
+    assert state.opt.mu["embed"].dtype == torch.float32

@@ -102,10 +102,13 @@ def test_rejects_bad_inputs():
         embedding_bag(table[:, :0], idx)
     with pytest.raises(ValueError, match=r"idx must be \[B, F\]"):
         embedding_bag(table, idx[0])
+    # a weighted bag has no backward; an unweighted one takes its table's
     with pytest.raises(NotImplementedError, match="no backward"):
-        embedding_bag(table.requires_grad_(), idx)
+        embedding_bag(table.requires_grad_(), idx, wts)
+    assert embedding_bag(table, idx).grad_fn is not None
     with torch.no_grad():
         assert embedding_bag(table, idx).shape == (3, 4)
+        assert embedding_bag(table, idx, wts).shape == (3, 4)
 
 
 def test_launch_counter_stays_zero_on_cpu_and_ops_reexports():

@@ -198,7 +198,8 @@ def test_build_fm_cell_retrieval_and_refusals():
     q, cands = cell.inputs
     assert q.shape == (7,) and cands.shape == (1_000_000, 7)
     assert cell.rows == 1_000_000
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # the train kind trains the params, so they must require grad
+    with pytest.raises(ValueError, match="requires_grad=True"):
         registry.build_fm_cell("train_batch", params, np.random.default_rng(0),
                                device="cpu")
     with pytest.raises(ValueError, match="no shape"):

@@ -43,6 +43,8 @@ from repro_torch.distributed import choose_topology, group, run_ranks
 from repro_torch.distributed import sketch_parallel
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import query_serve, stream_ingest
+from repro_torch.launch import train as ttrain
+from repro_torch.models.transformer import model as tmodel
 from repro_torch.net.ingest_server import WorkerServer, serve_worker_session
 from repro_torch.runtime.backend import run_ingest_worker
 from repro_torch.models.recsys import fm as tfm
@@ -99,6 +101,39 @@ def test_runtime_slice_modules_are_scanned(module):
     test_port_imports_neither_jax_nor_reference(path)
 
 
+# the training slice: the optimizer and steps, the transformer family, its
+# drivers and configs
+TRAINING_SLICE = ["training/__init__.py", "training/optimizer.py",
+                  "training/steps.py", "models/transformer/__init__.py",
+                  "models/transformer/config.py",
+                  "models/transformer/attention.py",
+                  "models/transformer/moe.py", "models/transformer/model.py",
+                  "configs/lm.py", "launch/serve.py", "launch/train.py"]
+
+
+@pytest.mark.parametrize("module", TRAINING_SLICE)
+def test_training_slice_modules_are_scanned(module):
+    test_runtime_slice_modules_are_scanned(module)
+
+
+def test_training_path_launches_nothing_on_cpu_tensors():
+    from repro_torch.kernels import embedding_bag_backward
+    from repro_torch.training import AdamWConfig, init_train_state
+    from repro_torch.training import make_train_step
+    from repro_torch.training.steps import fm_loss_fn
+
+    embedding_bag.launches = embedding_bag_backward.launches = 0
+    cfg = tfm.FMConfig(total_vocab=5_000, n_fields=7)
+    fm = tfm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                         requires_grad=True)
+    state = init_train_state(fm, AdamWConfig())
+    batch = {"ids": torch.randint(0, 1 << 30, (16, 7), dtype=torch.int32),
+             "labels": torch.ones(16)}
+    state, metrics = make_train_step(fm_loss_fn(cfg), AdamWConfig())(state, batch)
+    assert int(state.opt.step) == 1 and torch.isfinite(metrics["loss"])
+    assert embedding_bag.launches == embedding_bag_backward.launches == 0
+
+
 def test_only_items_12_and_13b_stay_refused_by_query_serve():
     """Items 12 and 13b's flags were the last the driver refused; since the
     network tier and the metrics dump are ported, it refuses none of the
@@ -124,7 +159,8 @@ def test_only_items_12_and_13b_stay_refused_by_query_serve():
     SketchRegistry.__init__, interop.snapshot_state_from_jax,
     ShardStreamView.batch, ShardStreamView.iter_from,
     WorkerServer.__init__, serve_worker_session, run_ingest_worker,
-    run_ranks, choose_topology,
+    run_ranks, choose_topology, tmodel.init_params, tmodel.init_cache,
+    tmodel.init_layer, ttrain.synthetic_lm_batch,
 ], ids=lambda f: f.__qualname__)
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
