@@ -156,7 +156,11 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      step time, rows/s, peak memory and the device's idle share.  The same
      cell at a small table (5,120 rows, 7 fields) on the card and on the
      CPU from one set of weights: 3 steps, losses and parameters within
-     1e-6.  The transformer family through its drivers:
+     1e-7.  A bf16 training state through ``launch/train.py --dtype
+     bfloat16 --ckpt-dir``: the reduced gemma2-2b trains 4 steps, its step-4
+     checkpoint restored into a fresh CUDA template equals the driver's
+     final state bit for bit, and ``--resume`` from step 2 trains steps 3
+     and 4.  The transformer family through its drivers:
      ``launch/serve.py`` (batch 4, prompt 32, 16 greedy tokens) and
      ``launch/train.py`` (3 steps at batch 8, seq 256) for gemma2-2b at
      full width (bf16, 26 layers, d = 2304, vocab 256,000; weights from a
@@ -178,10 +182,13 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      kMatrix and gMatrix closures for ``reach_closure`` and their
      squarings for ``reach_step``, every bag of phase G for
      ``embedding_bag``, both backward launches of a phase-L FM train step
-     for ``embedding_bag_backward``, within 1e-6 of max |grad| + 1e-9 of
-     its plain version since its atomics add in no fixed order, the
-     library call ``F.embedding_bag``'s autograd backward, which covers
-     only the Σv term of the ``emb`` launch) plus one wide shape each for
+     for ``embedding_bag_backward``, bit-equal to its plain version run on
+     CPU copies of the inputs and a second call bit-equal to the first,
+     with the kernels a call launches from the profiler (five, none a
+     fill), no global float atomic in the library's SASS, a bare
+     ``torch.zeros`` of the 400 MB gradient timed once, and the library
+     call ``F.embedding_bag``'s autograd backward, which covers only the
+     Σv term of the ``emb`` launch) plus one wide shape each for
      the sketch kernels
      (``reach_step`` also at phase D's 2 MB table): bit-equal results, and
      times
@@ -199,8 +206,10 @@ J's worker child processes and listen host are not counted there.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -266,13 +275,10 @@ DIST_QUERIES = 10_000
 # AdamW lr 1e-3, 100 warm-up steps), 3 bag and 2 backward launches a step
 FM_TRAIN_STEPS = 4
 FM_TRAIN_BAGS, FM_TRAIN_BACKWARDS = 3, 2
-# card vs CPU after 3 small-table steps: the backward's atomics add in
-# another order than the plain float64 sums (~1e-7 of a gradient), which
-# Adam carries into an update of at most lr (<= 3e-5 in these steps)
-FM_TRAIN_LOSS_TOL, FM_TRAIN_PARAM_TOL = 1e-6, 1e-6
-# embedding_bag_backward vs its plain version: a row hit k times differs by
-# about k float32 roundings of its running sum; k is small at B = 65,536
-BACKWARD_REL_TOL = 1e-6
+# card vs CPU after 3 small-table steps: the bags and the backward give the
+# CPU's bits, the loss's elementwise ops and mean may differ in a last bit,
+# which Adam carries into updates far below lr (<= 3e-5 here)
+FM_TRAIN_LOSS_TOL, FM_TRAIN_PARAM_TOL = 1e-7, 1e-7
 # reduced transformers, card vs CPU on the same float32 weights (cuBLAS
 # and the CPU sum the products in other orders; TF32 off)
 LM_RTOL, LM_ATOL = 1e-5, 1e-5
@@ -2241,6 +2247,65 @@ def _lm_reference_check(smoke, name: str):
                 f"within rtol {LM_RTOL}, atol {LM_ATOL} (max abs diff {err!r})")
 
 
+def _leaf_bits(torch, t):
+    """A tensor's raw words on the host, for a bit-for-bit comparison."""
+    t = t.detach().cpu()
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    return t
+
+
+def _lm_checkpoint_round_trip(smoke):
+    """A bf16 training state through ``launch/train.py --ckpt-dir``: the
+    reduced gemma2-2b in bfloat16 trains 4 steps and checkpoints at 2 and 4;
+    the step-4 checkpoint restored into a fresh CUDA template equals the
+    driver's final state bit for bit, leaf by leaf; then ``--resume`` from
+    step 2 trains steps 3 and 4 on the card."""
+    torch = smoke.torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.lm import LM_CONFIGS, reduced
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import model as tmodel
+    from repro_torch.training import AdamWConfig, init_train_state
+    from repro_torch.training.optimizer import tree_leaves
+
+    argv = ["--arch", "gemma2-2b", "--reduced", "--dtype", "bfloat16",
+            "--steps", "4", "--batch", "2", "--seq", "32", "--log-every", "1",
+            "--ckpt-every", "2"]
+    with tempfile.TemporaryDirectory() as ckpt:
+        reset_launches()
+        res = train.main([*argv, "--ckpt-dir", ckpt])
+        state = res["state"]
+        cfg = dataclasses.replace(reduced(LM_CONFIGS["gemma2-2b"]),
+                                  dtype="bfloat16")
+        params = tmodel.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(7), "cuda")
+        template = init_train_state(params, AdamWConfig(
+            lr_peak=3e-3, warmup_steps=5, total_steps=4))
+        restored, meta = store.restore(ckpt, template)
+        want, got = tree_leaves(state), tree_leaves(restored)
+        bf16 = sum(x.dtype == torch.bfloat16 for x in got)
+        same = len(want) == len(got) and all(
+            a.dtype == b.dtype and b.is_cuda
+            and torch.equal(_leaf_bits(torch, a), _leaf_bits(torch, b))
+            for a, b in zip(want, got))
+        smoke.check(meta["step"] == 4 and not meta["filled_from_template"]
+                    and bf16 > 0 and same,
+                    f"bf16 checkpoint (reduced gemma2-2b, {len(got)} leaves, "
+                    f"{bf16} bfloat16) restored into a CUDA template bit for "
+                    "bit")
+        shutil.rmtree(os.path.join(ckpt, "step_0000000004"))
+        resumed = train.main([*argv, "--ckpt-dir", ckpt, "--resume"])
+        launches = read_launches()
+    diff = max(abs(a - b) for a, b in zip(resumed["losses"], res["losses"][2:]))
+    smoke.check(len(resumed["losses"]) == 2 and all(
+        math.isfinite(x) for x in resumed["losses"]) and not any(
+        launches.values()), f"train --resume from the bf16 step-2 checkpoint: "
+        f"steps 3-4 losses {resumed['losses']} (uninterrupted {res['losses'][2:]}, "
+        f"max |diff| {diff!r}), no kernel launches")
+
+
 def _lm_idle(smoke, cfg, batch: int, seq: int):
     """Device busy time and idle share of one train step of ``cfg``
     (torch.profiler over steps of a fresh state, each synchronised)."""
@@ -2421,6 +2486,7 @@ def phase_train(smoke, card):
             smoke.check(not any(launches.values()),
                         f"{label}: no kernel launches (the transformer "
                         "reaches no TPU kernel)")
+    _lm_checkpoint_round_trip(smoke)
     out["lm"] = lm
     print(f"  {card}; phase L {time.perf_counter() - t_phase:.1f}s")
     return out
@@ -2646,12 +2712,48 @@ def _bench_bag(smoke, table, idx, weights, label):
     return row
 
 
+def _same_bits(torch, a, b) -> bool:
+    """Whether two float32 tensors hold the same bits (-0.0 and NaN too)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _kernels_per_call(torch, fn, iters: int = 5) -> list:
+    """(name, launches per call, device us per call) of every kernel that
+    ``fn()`` launches, from ``torch.profiler``."""
+    rows = []
+    for e in _profiled(torch, fn, iters):
+        if _self_device_us(e) > 0:
+            rows.append((e.key, e.count / iters, _per_call_us(e, iters)))
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def _no_float_atomics(smoke) -> None:
+    """The built library's SASS holds no global float atomic or reduction
+    (``cuobjdump`` from the toolkit, where it has one)."""
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc_path()).with_name("cuobjdump"))
+    if not Path(tool).exists():
+        print("  float atomics in the SASS: not checked (no cuobjdump)")
+        return
+    proc = subprocess.run([tool, "-sass", str(build.library_path(
+        "embedding_bag"))], capture_output=True, text=True, timeout=120)
+    floats = [ln.strip() for ln in proc.stdout.splitlines()
+              if ("RED" in ln or "ATOM" in ln) and "ATOMS" not in ln
+              and "F32" in ln]
+    smoke.check(proc.returncode == 0 and not floats,
+                "embedding_bag's library: no global float atomic or reduction "
+                f"in its SASS ({len(floats)} found)")
+
+
 def _bench_bag_backward(smoke, call, label):
-    """``embedding_bag_backward`` on one call of the FM train step against
-    its plain version (float64 sums in field order) on the card: within
-    ``BACKWARD_REL_TOL`` of the largest gradient, the kernel's atomics
-    adding in no fixed order.  Library: ``F.embedding_bag(mode="sum")``'s
-    autograd backward, which covers the Σv term only."""
+    """``embedding_bag_backward`` on one call of the FM train step: bit-equal
+    to its plain version run on CPU copies of the inputs, and a second call
+    bit-equal to the first; the kernels a call launches (no fill among
+    them).  Library: ``F.embedding_bag(mode="sum")``'s autograd backward,
+    which covers the Σv term only."""
     torch = smoke.torch
     import torch.nn.functional as F
 
@@ -2669,13 +2771,27 @@ def _bench_bag_backward(smoke, call, label):
         return embedding_bag_backward_plain(grad_out, idx, num_rows, table,
                                             grad_sq)
 
-    out_k, out_p = kernel(), plain()
+    out_k, again = kernel(), kernel()
     torch.cuda.synchronize()
+    out_k, again = out_k.cpu(), again.cpu()
+    cpu = [t.cpu() if isinstance(t, torch.Tensor) else t for t in call]
+    out_p = embedding_bag_backward_plain(cpu[0], cpu[1], num_rows, cpu[3],
+                                         cpu[4])
     err = float((out_k - out_p).abs().max())
-    tol = BACKWARD_REL_TOL * float(out_p.abs().max()) + 1e-9
-    smoke.check(err <= tol, f"embedding_bag_backward {label} within "
-                f"{BACKWARD_REL_TOL} of max |grad| + 1e-9 of the plain version "
-                f"(max abs diff {err!r}, allowed {tol!r})")
+    smoke.check(_same_bits(torch, out_k, out_p),
+                f"embedding_bag_backward {label} bit-equal to the plain "
+                f"version on the CPU (max abs diff {err!r})")
+    smoke.check(_same_bits(torch, out_k, again),
+                f"embedding_bag_backward {label}: two calls give the same bits")
+    del out_k, again, out_p, cpu
+    per_call = _kernels_per_call(torch, kernel)
+    for name, n, us in per_call:
+        print(f"    {label} device {us:9.2f} us/call  x{n:4.1f}  {name}")
+    fills = [name for name, _, _ in per_call
+             if any(w in name.lower() for w in ("fill", "memset", "zero"))]
+    smoke.check(not fills and all("bwd_" in name for name, _, _ in per_call),
+                f"embedding_bag_backward {label}: {len(per_call)} kernels a "
+                f"call, every one the port's, no fill ({fills})")
     ms = time_ms(torch, kernel)
     plain_ms = time_ms(torch, plain, iters=5, warmup=1)
     weight = torch.zeros((num_rows, d), dtype=torch.float32, device="cuda",
@@ -2698,12 +2814,24 @@ def _bench_bag_backward(smoke, call, label):
         nbytes += b * d * 4 + rows * d * 4
     row = {"shape": f"grad{[num_rows, d]} idx{list(idx.shape)}"
                     f"{' + squared term' if table is not None else ''}",
-           "rows_hit": rows, "max_abs_err": err, "tolerance": tol, "ms": ms,
+           "rows_hit": rows, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_covers": ("the Σv term only" if table is not None
                               else "the whole function"),
+           "kernels_per_call": len(per_call),
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            **dev}
+    if table is not None:
+        # the earlier design cleared the gradient first: a bare fill of it
+        def zeros():
+            return torch.zeros((num_rows, d), dtype=torch.float32,
+                               device="cuda")
+
+        row["zeros_ms"] = time_ms(torch, zeros)
+        row["zeros_device_ms"] = device_ms(torch, zeros)
+        print(f"  a bare torch.zeros of the [{num_rows}, {d}] gradient "
+              f"({num_rows * d * 4 / 1e6:.0f} MB): {row['zeros_ms']:.4f} ms, "
+              f"device {row['zeros_device_ms']} ms")
     print(f"  embedding_bag_backward {label}: {json.dumps(row)}")
     return row
 
@@ -3061,6 +3189,7 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
                                                   label), label)
 
     # embedding_bag_backward: both launches of a phase-L FM train step
+    _no_float_atomics(smoke)
     bwd_rows = []
     for call in train["backward_calls"]:
         label = "fm train emb" if call[3] is not None else "fm train lin"
@@ -3130,7 +3259,9 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
                     "src/repro/kernels/embedding_bag.py:38",
                     {k: v["embedding_bag_backward"] for k, v in by_path.items()},
                     bwd_rows[0], bwd_rows),
-         "tolerance": f"{BACKWARD_REL_TOL} of max |grad| + 1e-9",
+         "check": "bit-equal to the plain version on CPU copies of the "
+                  "inputs; two calls give the same bits",
+         "kernels_per_call": bwd_rows[0]["kernels_per_call"],
          "library_covers": bwd_rows[0]["library_covers"]},
     ]
 

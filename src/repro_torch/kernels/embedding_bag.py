@@ -17,9 +17,11 @@ the three agree bit for bit.
 
 The gradient.  ``embedding_bag_backward`` scatters a bag's output gradient
 back over its rows, ``grad[idx[b, f]] += grad_out[b]``, optionally with
-the FM's squared term ``2 table[idx[b, f]] grad_sq[b]``; it has a kernel
-of its own in the same source (float atomics, so its sums run in no fixed
-order) and a plain version that sums in float64 in field order.  The
+the FM's squared term ``2 table[idx[b, f]] grad_sq[b]``; it has kernels
+of their own in the same source (the pairs bucketed by row tile, each tile
+written once; ``backward_plan`` sizes them) and a plain version that sums
+in float64 in field order.  The kernels sum in that order too, so the two
+agree bit for bit.  The
 autograd path: ``embedding_bag`` on a table that requires grad (grad mode
 on) returns a bag whose backward is that kernel, and
 ``sum_and_square_bags`` gives the FM's Σv and Σv² bags with one backward
@@ -30,6 +32,7 @@ backward").
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -257,8 +260,74 @@ def sum_and_square_bags(table: torch.Tensor, squared: torch.Tensor,
 
 # ---------------------------------------------------------------- backward --
 
-BACKWARD_THREADS = 256
-BACKWARD_BLOCKS_PER_SM = 16  # the grid-stride loop's blocks per SM
+BACKWARD_THREADS = 256  # threads per block of every backward kernel
+SORT_CAP = 8_192  # K: bucket entries a reduce block sorts at once (the
+# kernel's SORT_MAX, 256 threads x 32 keys)
+SORT_WORDS = SORT_CAP * 33 // 32  # the sort's storage: K keys and CUB's
+# padding of a word per 32
+CBUF = 8_192  # floats of contributions a reduce block gathers at once
+TILE_ROWS = 4_096  # most rows per tile: about K / 2, so a tile of the FM's
+# densest fields (1.7 pairs a row) stays within one sort
+TILE_ELEMS = 65_536  # most elements a reduce block writes (R D)
+CHUNK = 4_096  # pairs a count or scatter block takes (the kernel's CHUNK,
+# 256 threads x 16, sorted at once by tile)
+COUNT_TILES = 12_288  # tiles a count block histograms at once (48 KB)
+MAX_TILES = (1 << 20) - 1  # a scatter key packs (tile, place in chunk) in
+# 20 + 12 bits
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """``embedding_bag_backward``'s launch plan and scratch, from the
+    shapes alone (``backward_plan``)."""
+
+    rlog: int  # tiles of R = 2^rlog rows
+    tiles: int  # T = ceil(num_rows / R): reduce blocks
+    bbits: int  # bits of b in a bucket entry, (row in tile) << bbits | b
+    pairs: int  # N = B F
+    chunks: int  # C = ceil(N / CHUNK): count and scatter blocks
+    count_tiles: int  # tiles a count block histograms at once
+
+    @property
+    def rows_per_tile(self) -> int:
+        return 1 << self.rlog
+
+    @property
+    def scratch_words(self) -> dict[str, int]:
+        """int32 words of each scratch array: key and bucket hold one word
+        per pair, cnt one per (chunk, tile), tot and base one per tile, the
+        ticket one."""
+        return {"key": self.pairs, "bucket": self.pairs,
+                "cnt": self.chunks * self.tiles, "tot": self.tiles,
+                "base": self.tiles + 1, "ticket": 1}
+
+    @property
+    def smem_bytes(self) -> dict[str, int]:
+        """Dynamic shared memory of the two kernels that take it: the count
+        histogram; the reduce's sort storage (an estimate of CUB's), row
+        runs (R + 1 words, rounded to 16 bytes) and contribution buffer."""
+        runs = -(-(self.rows_per_tile + 1) // 4) * 4
+        return {"count": 4 * self.count_tiles,
+                "reduce": 4 * (SORT_WORDS + runs + CBUF)}
+
+
+def backward_plan(b: int, f: int, d: int, num_rows: int) -> BackwardPlan:
+    """The plan for B bags of F fields into a [num_rows, D] gradient.
+
+    R: the largest power of two with R <= ``TILE_ROWS``, R D <=
+    ``TILE_ELEMS``, R no more than num_rows needs, and R B <= 2^32 so that
+    a bucket entry packs (row in tile, b) into 32 bits.  Chunks of
+    ``CHUNK`` pairs.
+    """
+    pairs = b * f
+    bbits = max(b - 1, 0).bit_length()
+    rlog = min(TILE_ROWS.bit_length() - 1,
+               max(TILE_ELEMS // max(d, 1), 1).bit_length() - 1,
+               (num_rows - 1).bit_length(), 32 - bbits)
+    tiles = -(-num_rows // (1 << rlog))
+    chunks = max(1, -(-pairs // CHUNK))
+    return BackwardPlan(rlog, tiles, bbits, pairs, chunks,
+                        min(COUNT_TILES, tiles))
 
 
 def _check_backward(grad_out, idx, num_rows, table, grad_sq) -> None:
@@ -313,16 +382,9 @@ def _backward_launcher():
     lib = build.load("embedding_bag")
     fn = lib.embedding_bag_backward_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     return lib, fn
-
-
-def backward_vec(d: int, *ptrs: int) -> int:
-    """Floats per thread and access: the widest of 4, 2, 1 that divides D
-    and every pointer's alignment."""
-    return next(v for v in (4, 2, 1)
-                if d % v == 0 and all(p % (4 * v) == 0 for p in ptrs))
 
 
 def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor,
@@ -332,9 +394,10 @@ def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor,
     """The table gradient of an unweighted bag -> a new f32[num_rows, D]:
     ``grad[idx[b, f]] += grad_out[b] (+ 2 table[idx[b, f]] grad_sq[b])``.
 
-    A CUDA ``grad_out`` zeroes the gradient and launches the kernel (its
-    sums in no fixed order); a CPU one takes the plain version.  idx must
-    lie in ``[0, num_rows)`` (checked on the CPU only, as for the bag).
+    A CUDA ``grad_out`` launches the kernel, which writes every element of
+    the gradient once, bit-equal to the plain version; a CPU one takes the
+    plain version.  idx must lie in ``[0, num_rows)`` (checked on the CPU
+    only, as for the bag).
     """
     _check_backward(grad_out, idx, num_rows, table, grad_sq)
     if grad_out.device.type == "cpu":
@@ -346,21 +409,33 @@ def embedding_bag_backward(grad_out: torch.Tensor, idx: torch.Tensor,
                          f"{grad_out.device}")
     b, f = idx.shape
     d = grad_out.shape[1]
-    grad = torch.zeros((num_rows, d), dtype=torch.float32,
+    if b * f >= 2**31 or num_rows >= 2**31 or f > 65_535 * 32:
+        raise ValueError(f"B * F = {b} * {f} and num_rows = {num_rows} must "
+                         "be below 2^31, F at most 2,097,120")
+    grad = torch.empty((num_rows, d), dtype=torch.float32,
                        device=grad_out.device)
-    ptrs = [t.data_ptr() for t in (grad_out, grad, table, grad_sq)
-            if t is not None]
-    vec = backward_vec(d, *ptrs)
-    work = b * f * (d // vec)
-    blocks = max(1, min(-(-work // BACKWARD_THREADS),
-                        build.SMS * BACKWARD_BLOCKS_PER_SM))
+    if grad.numel() == 0:
+        return grad
+    plan = backward_plan(b, f, d, num_rows)
+    if plan.tiles > MAX_TILES:
+        raise ValueError(f"{plan.tiles} tiles of {plan.rows_per_tile} rows: "
+                         f"the kernels take at most {MAX_TILES}")
+    words = plan.scratch_words
+    scratch = torch.empty(sum(words.values()), dtype=torch.int32,
+                          device=grad_out.device)
+    parts, at = {}, 0
+    for name, n in words.items():
+        parts[name] = scratch.data_ptr() + 4 * at
+        at += n
     lib, fn = _backward_launcher()
     with build.on_device(grad_out.device) as stream:
         code = fn(grad_out.data_ptr(), idx.data_ptr(),
                   None if table is None else table.data_ptr(),
                   None if grad_sq is None else grad_sq.data_ptr(),
-                  grad.data_ptr(), b, f, d, vec, blocks, BACKWARD_THREADS,
-                  stream)
+                  grad.data_ptr(), parts["key"], parts["bucket"], parts["cnt"],
+                  parts["tot"], parts["base"], parts["ticket"], b, f, d,
+                  num_rows, plan.rlog, plan.bbits, plan.chunks,
+                  plan.count_tiles, stream)
     build.check(lib, "embedding_bag", code)
     build.count_launch(embedding_bag_backward)
     return grad

@@ -3,12 +3,15 @@ on the card.
 
 The port of ``repro/launch/train.py``, with its flags and its lines, and
 ``--device`` (``cuda`` by default; ``cpu`` runs the same code on the host,
-never chosen on its own):
+never chosen on its own) and ``--dtype`` (the parameters' type; by default
+the config's own: bfloat16 at full width, float32 reduced):
 
   python -m repro_torch.launch.train --arch gemma2-2b --steps 5 \\
       --batch 8 --seq 256
   python -m repro_torch.launch.train --arch gemma2-2b --reduced --steps 20 \\
       --device cpu --ckpt-dir /tmp/lm_ckpt
+  python -m repro_torch.launch.train --arch gemma2-2b --reduced --steps 4 \\
+      --dtype bfloat16 --ckpt-dir /tmp/lm_ckpt --ckpt-every 2 --resume
 
 Weights come from a torch generator seeded with ``--seed``; each step's
 batch from numpy's ``default_rng((seed << 20) + step)``, the same tokens
@@ -18,6 +21,7 @@ JAX package's checkpoint layout, so either driver resumes the other's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -55,6 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back on its own")
+    ap.add_argument("--dtype", default="", choices=("", "float32", "bfloat16"),
+                    help="the parameters' type (default: the config's)")
     return ap
 
 
@@ -65,13 +71,16 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Train; print the JAX driver's lines.  Returns ``{"losses",
-    "step_s"}``: every step's loss and each step's host time (ending in a
-    device synchronise, since each loss is read back)."""
+    "step_s", "state"}``: every step's loss, each step's host time (ending
+    in a device synchronise, since each loss is read back) and the final
+    training state."""
     args = build_parser().parse_args(argv)
     device = require_device(args.device)
     cfg = LM_CONFIGS[args.arch]
     if args.reduced:
         cfg = lm_reduced(cfg)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
           f"active~{cfg.active_param_count()/1e6:.1f}M")
 
@@ -114,7 +123,7 @@ def main(argv=None) -> dict:
         first, last = np.mean(losses[:10]), np.mean(losses[-10:])
         print(f"loss {first:.3f} -> {last:.3f} "
               f"({'improved' if last < first else 'NOT improved'})")
-    return {"losses": losses, "step_s": step_s}
+    return {"losses": losses, "step_s": step_s, "state": state}
 
 
 if __name__ == "__main__":

@@ -15,6 +15,8 @@ Tolerances, each against the largest magnitude of the compared quantity:
   a last-bit gradient difference into a difference of up to lr in the
   update; at lr <= 3e-4 that stays below 1e-6.
 """
+import importlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -242,3 +244,133 @@ def test_backward_checks_its_inputs():
     with pytest.raises(ValueError, match="cuda or cpu"):
         embedding_bag_backward(g.to("meta"), idx.to("meta"), 5)
     assert embedding_bag_backward.launches == 0
+
+
+# ------------------------------------------- the backward kernels' plan --
+# (the kernels run on the card only: tests/test_torch_cuda.py holds them
+# bit-equal to the plain version; here the plan they are launched with)
+
+eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+SMEM_BUDGET = 232_448  # shared memory a block may use on an H100
+
+PLAN_SHAPES = [(65_536, 39, 10, 10_000_384), (65_536, 39, 1, 10_000_384),
+               (512, 39, 10, 1000), (1, 1, 3, 1), (0, 5, 3, 7),
+               (7, 2, 128, 50), (1 << 20, 39, 2, 1_000_000),
+               (3000, 9, 10, 10_001), (2048, 3, 1, 10_600_000),
+               (1 << 24, 2, 1, 5000), (4, 3, 100_000, 9)]
+
+
+@pytest.mark.parametrize("b,f,d,v", PLAN_SHAPES)
+def test_backward_plan_tiles_cover_the_rows(b, f, d, v):
+    """Tiles of R = 2^rlog rows cover [0, num_rows), only the last one
+    ragged; R within its limits and no larger than the rows need; a bucket
+    entry packs (row in tile, b) into 32 bits."""
+    p = eb.backward_plan(b, f, d, v)
+    r = p.rows_per_tile
+    assert (p.tiles - 1) * r < v <= p.tiles * r
+    assert r <= eb.TILE_ROWS and (r == 1 or r * d <= eb.TILE_ELEMS)
+    assert r == 1 or r < 2 * v
+    assert p.rlog + p.bbits <= 32 and max(b - 1, 0) < 1 << p.bbits
+    if (b, d, v) == (65_536, 10, 10_000_384):  # the FM's emb: 2,442 tiles
+        assert (r, p.tiles) == (4096, 2442)
+
+
+@pytest.mark.parametrize("d", [1, 2, 10, 128])
+@pytest.mark.parametrize("b,f,v", [(65_536, 39, 10_000_384), (512, 39, 1000),
+                                   (1 << 20, 39, 60_000_000), (1, 1, 1)])
+def test_backward_plan_shared_memory_stays_in_budget(b, f, d, v):
+    """Each kernel's shared memory fits a block's budget on the card, the
+    reduce's twice over (two blocks a SM); the count blocks take tiles in
+    ranges that fit."""
+    p = eb.backward_plan(b, f, d, v)
+    smem = p.smem_bytes
+    assert set(smem) == {"count", "reduce"}
+    assert 0 < smem["count"] <= SMEM_BUDGET
+    assert 0 < 2 * (smem["reduce"] + 1024) <= SMEM_BUDGET
+    assert p.count_tiles == min(eb.COUNT_TILES, p.tiles)
+    assert smem["reduce"] % 16 == 0
+    assert eb.SORT_CAP % 8 == 0  # the over-capacity path's float64 half
+    assert eb.SORT_CAP == eb.BACKWARD_THREADS * 32  # 32 keys a thread
+
+
+@pytest.mark.parametrize("b,f,d,v", PLAN_SHAPES)
+def test_backward_plan_scratch_holds_every_pair(b, f, d, v):
+    p = eb.backward_plan(b, f, d, v)
+    words = p.scratch_words
+    assert words["key"] == words["bucket"] == p.pairs == b * f
+    assert (p.chunks - 1) * eb.CHUNK < max(b * f, 1) <= p.chunks * eb.CHUNK
+    assert words["cnt"] == p.chunks * p.tiles
+    assert words["tot"] == p.tiles and words["base"] == p.tiles + 1
+
+
+def _bucketed_backward(g, idx, v, plan, table=None, gs=None):
+    """The kernels' arithmetic of positions in numpy: pairs p = f B + b,
+    counted per (chunk, tile), the counts scanned down the chunks and the
+    totals over the tiles, each pair placed at base[tile] + (pairs of its
+    tile in earlier chunks) + (its rank in its chunk), packed (row in tile)
+    << bbits | b; then every element summed in float64 in bucket order."""
+    b_, f_ = idx.shape
+    n = b_ * f_
+    key = idx.T.reshape(-1).astype(np.int64)
+    p = np.arange(n)
+    tile, chunk = key >> plan.rlog, p // eb.CHUNK
+    cnt = np.zeros((plan.chunks, plan.tiles), np.int64)
+    np.add.at(cnt, (chunk, tile), 1)
+    earlier = np.cumsum(cnt, 0) - cnt
+    base = np.concatenate([[0], np.cumsum(cnt.sum(0))])
+    group = chunk * plan.tiles + tile
+    order = np.argsort(group, kind="stable")
+    rank = np.empty(n, np.int64)
+    starts = np.searchsorted(group[order], group[order])
+    rank[order] = np.arange(n) - starts
+    pos = base[tile] + earlier[chunk, tile] + rank
+    bucket = np.full(n, -1, np.int64)
+    bucket[pos] = ((key & (plan.rows_per_tile - 1)) << plan.bbits) | (p % b_)
+    assert (bucket >= 0).all() and (bucket < 1 << 32).all()  # all placed
+    tiles = np.repeat(np.arange(plan.tiles), np.diff(base))
+    rows = (tiles << plan.rlog) + (bucket >> plan.bbits)
+    bags = torch.as_tensor(bucket & ((1 << plan.bbits) - 1))
+    c = g[bags]
+    if table is not None:
+        c = eb._fma(2 * table[torch.as_tensor(rows)], gs[bags], c)
+    acc = np.zeros((v, g.shape[1]))
+    np.add.at(acc, rows, c.double().numpy())  # in bucket order
+    return torch.as_tensor(acc.astype(np.float32))
+
+
+@pytest.mark.parametrize("squared", [False, True], ids=["sum", "squared"])
+@pytest.mark.parametrize("v,d,b,f,hot", [(1000, 10, 512, 39, False),
+                                         (9001, 1, 4096, 3, True),
+                                         (10_001, 10, 3000, 9, False),
+                                         (50, 128, 7, 2, False),
+                                         (200, 3, 1024, 5, False)])
+def test_bucket_order_reproduces_the_plain_bits(v, d, b, f, hot, squared):
+    """Summed in the order the plan's buckets hold the pairs, every element
+    has the plain version's bits: each bucket keeps its pairs in pair
+    order, whatever the chunks and tiles.  A third of the bags' gradients
+    are +-2^60, so a row's sum in another order (even in float64) has
+    other bits."""
+    rng = np.random.default_rng(v + d + b)
+    idx = rng.integers(0, v, (b, f)).astype(np.int32)
+    if hot:
+        idx[:] = v // 2
+    gn = rng.normal(size=(b, d)).astype(np.float32)
+    gn = np.choose(rng.integers(0, 3, (b, d)),
+                   [gn, np.float32(2**60), np.float32(-2**60)])
+    g = torch.as_tensor(gn)
+    table = gs = None
+    if squared:
+        table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32))
+        gs = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32))
+    plan = eb.backward_plan(b, f, d, v)
+    got = _bucketed_backward(g, idx, v, plan, table, gs)
+    want = embedding_bag_backward_plain(g, torch.as_tensor(idx), v, table, gs)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_backward_plan_keeps_tiles_within_the_scatter_key():
+    """A scatter key packs (tile, place in a chunk) into 32 bits: the FM's
+    shapes are far inside; a table the kernels cannot tile is refused on
+    the card (the CPU path has no such limit)."""
+    assert eb.backward_plan(65_536, 39, 10, 10_000_384).tiles <= eb.MAX_TILES
+    assert eb.backward_plan(8, 2, 1 << 17, 1 << 21).tiles > eb.MAX_TILES

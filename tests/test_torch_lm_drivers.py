@@ -92,6 +92,35 @@ def test_port_resumes_a_jax_training_checkpoint(tmp_path, capsys):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0, atol=1e-5)
 
 
+def test_bf16_training_resumes_through_the_driver(tmp_path, capsys):
+    """``--dtype bfloat16``: the reduced gemma2-2b trains 4 steps with
+    checkpoints at 2 and 4; the step-4 checkpoint restores into a fresh
+    template bit for bit, leaf by leaf (bfloat16 kept); ``--resume`` from
+    step 2 prints steps 3 and 4 with the uninterrupted run's losses, bit
+    for bit (the same ops on the same host)."""
+    flags = [*TRAIN_FLAGS, "--dtype", "bfloat16", "--device", "cpu",
+             "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    first = ttrain.main(flags)
+    cfg = dataclasses.replace(tlm.reduced(tlm.LM_CONFIGS["gemma2-2b"]),
+                              dtype="bfloat16")
+    template = init_train_state(
+        tm.init_params(cfg, torch.Generator().manual_seed(5), "cpu"),
+        AdamWConfig(lr_peak=3e-3, warmup_steps=5, total_steps=4))
+    restored, meta = tstore.restore(str(tmp_path), template)
+    assert meta["step"] == 4 and meta["filled_from_template"] == []
+    want, got = _port_leaves(first["state"]), _port_leaves(restored)
+    assert sorted(got) == sorted(want)
+    assert any(v.dtype == np.dtype("V2") for v in got.values())
+    for k in want:
+        assert want[k].dtype == got[k].dtype
+        assert want[k].tobytes() == got[k].tobytes(), k
+    shutil.rmtree(tmp_path / "step_0000000004")
+    capsys.readouterr()
+    again = ttrain.main([*flags, "--resume"])
+    assert "resumed at step 2" in capsys.readouterr().out
+    assert again["losses"] == first["losses"][2:]
+
+
 def test_synthetic_batches_equal_jax():
     for step in range(3):
         rng_j, rng_t = (np.random.default_rng((0 << 20) + step) for _ in range(2))
