@@ -31,9 +31,10 @@ JAX peer rebuilds them with ``tree_unflatten`` of its own.
 ``fm_params_from_jax`` does the same for the FM: the JAX package's params
 dict (``emb``, ``lin``, ``bias``) as numpy arrays becomes the port's ``FM``.
 ``lm_params_from_jax`` carries a transformer's params tree (the same
-layout on both sides), and ``train_state_from_jax`` a whole JAX
+layout on both sides), ``gnn_params_from_jax`` a GNN's (its stacked
+``layers`` included), and ``train_state_from_jax`` a whole JAX
 ``TrainState`` (params and AdamW moments, numpy leaves) into a port
-``TrainState`` template, FM or LM, keyed as the checkpoint store keys
+``TrainState`` template, FM, LM or GNN, keyed as the checkpoint store keys
 them.  bfloat16 leaves (``ml_dtypes`` arrays) travel as their raw 2-byte
 words.
 """
@@ -290,6 +291,38 @@ def lm_params_from_jax(cfg, np_params: dict, *, device="cuda",
     return conv(np_params)
 
 
+# the top-level keys of each GNN's params tree, the JAX package's layout
+GNN_PARAM_KEYS = {
+    "gatedgcn": {"embed_h", "embed_e", "layers", "head"},
+    "graphcast": {"embed_grid", "embed_mesh", "embed_edge", "g2m",
+                  "processor", "m2g", "head"},
+    "nequip": {"embed", "layers", "head_w1", "head_w2"},
+    "equiformer-v2": {"embed", "layers", "head_w1", "head_w2"},
+}
+
+
+def gnn_params_from_jax(arch_name: str, np_params: dict, *, device="cuda",
+                        requires_grad: bool = True) -> dict:
+    """The port's params of the GNN ``arch_name`` holding copies of the JAX
+    package's (the same tree: dicts of numpy arrays, ``layers`` /
+    ``processor`` leaves stacked over the layers) on ``device``."""
+    if arch_name not in GNN_PARAM_KEYS:
+        raise KeyError(f"unknown GNN {arch_name!r} "
+                       f"(one of {sorted(GNN_PARAM_KEYS)})")
+    want = GNN_PARAM_KEYS[arch_name]
+    if set(np_params) != want:
+        raise KeyError(f"{arch_name} params must hold {sorted(want)}, got "
+                       f"{sorted(np_params)}")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        t = array_tensor(x, device)
+        return t.requires_grad_(requires_grad and t.is_floating_point())
+
+    return conv(np_params)
+
+
 class _KeyedLeaves(dict):
     """Leaves keyed as the checkpoint store keys them, in the shape of an
     opened ``npz`` (``.files``), for the store's restore walk."""
@@ -300,7 +333,7 @@ class _KeyedLeaves(dict):
 
 
 def train_state_from_jax(np_state, template):
-    """The port's ``TrainState`` ``template`` (FM or LM) filled with a JAX
+    """The port's ``TrainState`` ``template`` (FM, LM or GNN) filled with a JAX
     ``TrainState`` whose leaves are numpy arrays (``jax.tree.map(
     np.asarray, state)``): a module template is filled in place, other
     leaves are fresh tensors on their template's devices.  Raises on a

@@ -1,14 +1,13 @@
-"""Run a ported architecture at reduced scale: one forward, asserting
+"""Run any assigned architecture at reduced scale: one forward, asserting
 finite outputs — the CLI face of ``repro.launch.smoke`` for the port.
 
   python -m repro_torch.launch.smoke --arch fm                # on the card
   python -m repro_torch.launch.smoke --arch fm --device cpu   # plain versions
+  python -m repro_torch.launch.smoke --arch equiformer-v2 --device cpu
+  python -m repro_torch.launch.smoke --all --device cpu
 
-  python -m repro_torch.launch.smoke --arch gemma2-2b --device cpu
-
-The FM and the five LM architectures are ported; the GNN architectures of
-the JAX package's smoke are refused with a pointer to ROADMAP.md (§A, the
-GNN family).
+Every architecture of the JAX package's smoke is ported: the FM, the five
+LMs and the four GNNs.
 """
 from __future__ import annotations
 
@@ -19,9 +18,6 @@ import time
 import torch
 
 from repro_torch.launch.stream_ingest import require_device
-
-# the JAX package's smoke architectures that the port does not have yet
-NOT_PORTED = ("gatedgcn", "graphcast", "nequip", "equiformer-v2")
 
 
 def smoke_lm(name: str, device) -> dict:
@@ -43,6 +39,41 @@ def smoke_lm(name: str, device) -> dict:
             "device": str(device)}
 
 
+def gnn_smoke_config(name: str):
+    """The reduced config of the JAX package's ``smoke_gnn`` for ``name``."""
+    from repro_torch.models.gnn import equiformer_v2, gatedgcn, graphcast, nequip
+
+    return {
+        "gatedgcn": lambda: gatedgcn.GatedGCNConfig(n_layers=3, d_hidden=16,
+                                                    d_out=4),
+        "graphcast": lambda: graphcast.GraphCastConfig(n_layers=2, d_hidden=32,
+                                                       n_vars=13),
+        "nequip": lambda: nequip.NequIPConfig(n_layers=2, d_hidden=8,
+                                              edge_chunk=32),
+        "equiformer-v2": lambda: equiformer_v2.EquiformerV2Config(
+            n_layers=2, d_hidden=16, l_max=3, n_heads=4, edge_chunk=32),
+    }[name]()
+
+
+def smoke_gnn(name: str, device) -> dict:
+    """``smoke_gnn`` of the JAX package: ``synthetic_graph(24, 64, 13)`` and
+    its four reduced configs, one forward (NequIP: the energy), finite."""
+    from repro_torch.configs.registry import gnn_module, init_gnn_params
+    from repro_torch.models.gnn import synthetic_graph
+
+    g = synthetic_graph(24, 64, 13, seed=0, device=device)
+    cfg = gnn_smoke_config(name)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_gnn_params(name, cfg, gen, 13, device, requires_grad=False)
+    module = gnn_module(name)
+    with torch.no_grad():
+        out = (module.energy(cfg, params, g, g.positions) if name == "nequip"
+               else module.forward(cfg, params, g))
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"error: {name} output is not finite")
+    return {"out_shape": list(out.shape), "device": str(device)}
+
+
 def smoke_recsys(name: str, device) -> dict:
     """``smoke_recsys`` of the JAX package: vocab 5,000, 7 fields, 32 rows,
     a finite BCE at all-zero labels."""
@@ -62,13 +93,18 @@ def smoke_recsys(name: str, device) -> dict:
 
 FAMILIES = {"gemma2-2b": smoke_lm, "internlm2-20b": smoke_lm,
             "gemma3-27b": smoke_lm, "mixtral-8x7b": smoke_lm,
-            "grok-1-314b": smoke_lm, "fm": smoke_recsys}
+            "grok-1-314b": smoke_lm,
+            "gatedgcn": smoke_gnn, "graphcast": smoke_gnn,
+            "nequip": smoke_gnn, "equiformer-v2": smoke_gnn,
+            "fm": smoke_recsys}
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True,
-                    choices=sorted((*FAMILIES, *NOT_PORTED)))
+    which = ap.add_mutually_exclusive_group(required=True)
+    which.add_argument("--arch", choices=sorted(FAMILIES))
+    which.add_argument("--all", action="store_true",
+                       help="every architecture, in name order")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; never falls back on its own")
     return ap
@@ -76,15 +112,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.arch not in FAMILIES:
-        raise SystemExit(
-            f"error: {args.arch} is not ported to PyTorch yet; see "
-            "ROADMAP.md, §A (the GNN family). Ported: "
-            f"{', '.join(sorted(FAMILIES))}")
     device = require_device(args.device)
-    t0 = time.time()
-    out = FAMILIES[args.arch](args.arch, device)
-    print(f"[smoke OK] {args.arch:15s} {time.time() - t0:5.1f}s {out}")
+    for name in sorted(FAMILIES) if args.all else [args.arch]:
+        t0 = time.time()
+        out = FAMILIES[name](name, device)
+        print(f"[smoke OK] {name:15s} {time.time() - t0:5.1f}s {out}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,3 @@
-"""Models of the port: the Factorization Machine (``models.recsys.fm``)."""
+"""Models of the port: the Factorization Machine (``models.recsys.fm``),
+the transformer family (``models.transformer``) and the GNN family
+(``models.gnn``)."""

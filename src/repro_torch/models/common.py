@@ -76,6 +76,13 @@ ACTIVATIONS: dict[str, Callable] = {
 }
 
 
+def unstack_layers(layers: dict, n_layers: int) -> list[dict]:
+    """Each layer's parameter dict from leaves stacked over the layers (one
+    unbind per leaf, so a leaf's gradient is one stack)."""
+    cols = {k: v.unbind(0) for k, v in layers.items()}
+    return [{k: cols[k][i] for k in layers} for i in range(n_layers)]
+
+
 def count_params(params) -> int:
     """Number of parameters of a module, a (nested) dict or list of
     tensors, or a tensor."""

@@ -1,5 +1,5 @@
-"""Train-step builders: the port of ``repro/training/steps.py`` for the FM
-and the transformer family (the GNN losses come with the GNN slice).
+"""Train-step builders: the port of ``repro/training/steps.py`` for the FM,
+the transformer family and the GNN family.
 
 ``make_train_step`` returns ``step(state, batch) -> (state, metrics)``.
 Gradients come from ``torch.autograd.grad`` over the parameter leaves (no
@@ -80,6 +80,51 @@ def lm_loss_fn(cfg):
 
     def loss_fn(params, batch):
         return lm_loss(cfg, params, batch["tokens"], batch["labels"])
+
+    return loss_fn
+
+
+def gnn_node_class_loss_fn(cfg, forward, n_classes: int):
+    def loss_fn(params, batch):
+        g, labels = batch["graph"], batch["labels"]
+        logits = forward(cfg, params, g)[..., :n_classes]
+        lse = torch.logsumexp(logits, dim=-1)
+        true = torch.take_along_dim(logits, labels.long()[:, None], dim=-1)[:, 0]
+        loss = torch.sum((lse - true) * g.node_mask) / torch.clamp_min(
+            g.node_mask.sum(), 1.0)
+        return loss, {"ce": loss}
+
+    return loss_fn
+
+
+def gnn_regression_loss_fn(cfg, forward):
+    def loss_fn(params, batch):
+        g, target = batch["graph"], batch["target"]
+        pred = forward(cfg, params, g)
+        loss = torch.mean((pred - target) ** 2)
+        return loss, {"mse": loss}
+
+    return loss_fn
+
+
+def energy_loss_fn(cfg, energy_fn, *, force_weight: float = 0.0):
+    """Molecular potential loss; optional force matching (grad-of-grad:
+    ``energy_fn`` then returns (energies, forces) with the forces' graph
+    kept)."""
+
+    def loss_fn(params, batch):
+        g, e_target = batch["graph"], batch["energy"]
+        if force_weight > 0:
+            e, forces = energy_fn(cfg, params, g)
+            f_loss = torch.mean(torch.sum((forces - batch["forces"]) ** 2, -1))
+        else:
+            e = energy_fn(cfg, params, g)
+            if isinstance(e, tuple):
+                e = e[0]
+            f_loss = 0.0
+        e_loss = torch.mean((e - e_target) ** 2)
+        loss = e_loss + force_weight * f_loss
+        return loss, {"e_mse": e_loss}
 
     return loss_fn
 

@@ -218,11 +218,17 @@ def _smoke(*args):
 
 
 def test_smoke_cli_runs_on_cpu_and_refuses_other_families():
+    """Every family is ported now: a GNN runs too, and only a name the
+    smoke does not know is refused."""
     proc = _smoke("--arch", "fm", "--device", "cpu")
     assert proc.returncode == 0, proc.stderr
     assert "[smoke OK] fm" in proc.stdout and "'bce'" in proc.stdout
     proc = _smoke("--arch", "gatedgcn", "--device", "cpu")
-    assert proc.returncode != 0 and "ROADMAP.md" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert "[smoke OK] gatedgcn" in proc.stdout and "[24, 4]" in proc.stdout
+    proc = _smoke("--arch", "gcn-unknown", "--device", "cpu")
+    assert proc.returncode != 0 and "invalid choice" in proc.stderr
+    assert "smoke OK" not in proc.stdout
 
 
 def test_smoke_cli_defaults_to_cuda_and_refuses_without_a_card():

@@ -289,13 +289,37 @@ def test_drivers_default_to_cuda_and_refuse_without_a_card(module):
         mod.main(["--reduced"])
 
 
-def test_smoke_runs_the_lm_family_and_refuses_only_gnns():
+def _smoke(*args):
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-    ok = subprocess.run([sys.executable, "-m", "repro_torch.launch.smoke",
-                         "--arch", "mixtral-8x7b", "--device", "cpu"],
-                        capture_output=True, text=True, env=env, timeout=120)
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.smoke",
+                           *args], capture_output=True, text=True, env=env,
+                          timeout=120)
+
+
+def test_smoke_runs_the_lm_family_and_refuses_only_gnns():
+    """The GNNs are ported now: they run beside the LMs, and the smoke
+    refuses only a name it does not know."""
+    ok = _smoke("--arch", "mixtral-8x7b", "--device", "cpu")
     assert ok.returncode == 0 and "[smoke OK] mixtral-8x7b" in ok.stdout
-    no = subprocess.run([sys.executable, "-m", "repro_torch.launch.smoke",
-                         "--arch", "gatedgcn", "--device", "cpu"],
-                        capture_output=True, text=True, env=env, timeout=120)
-    assert no.returncode != 0 and "GNN family" in no.stderr
+    gnn = _smoke("--arch", "equiformer-v2", "--device", "cpu")
+    assert gnn.returncode == 0, gnn.stderr
+    assert "[smoke OK] equiformer-v2" in gnn.stdout
+    no = _smoke("--arch", "llama-unknown", "--device", "cpu")
+    assert no.returncode != 0 and "invalid choice" in no.stderr
+
+
+def test_smoke_all_runs_every_architecture_on_cpu():
+    from repro_torch.launch import smoke
+
+    proc = _smoke("--all", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    names = [line.split()[2] for line in proc.stdout.splitlines()
+             if line.startswith("[smoke OK]")]
+    assert names == sorted(smoke.FAMILIES) and len(names) == 10
+    assert {"fm", "gatedgcn", "graphcast", "nequip", "equiformer-v2",
+            "gemma2-2b", "internlm2-20b", "gemma3-27b", "mixtral-8x7b",
+            "grok-1-314b"} == set(names)
+    both = _smoke("--all", "--arch", "fm", "--device", "cpu")
+    assert both.returncode != 0 and "not allowed with" in both.stderr
+    neither = _smoke("--device", "cpu")
+    assert neither.returncode != 0 and "one of the arguments" in neither.stderr

@@ -55,6 +55,16 @@ from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
 from repro_torch.streams.generators import SyntheticStream
 
+from repro_torch.configs import registry as tregistry
+from repro_torch.models.gnn import (equiformer_v2, gatedgcn, graph as tgraph,
+                                    graphcast, nequip)
+
+_GNN_CONSTRUCTORS = [tgraph.synthetic_graph, gatedgcn.init_params,
+                     graphcast.init_params, nequip.init_params,
+                     equiformer_v2.init_params, tregistry.init_gnn_params,
+                     tregistry.gnn_batch, tregistry.build_gnn_cell,
+                     interop.gnn_params_from_jax]
+
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
@@ -116,6 +126,64 @@ def test_training_slice_modules_are_scanned(module):
     test_runtime_slice_modules_are_scanned(module)
 
 
+# the GNN family: its models, the numpy copies, the configs and losses that
+# name it, interop and the smoke
+GNN_SLICE = ["models/gnn/__init__.py", "models/gnn/graph.py",
+             "models/gnn/sampler.py", "models/gnn/so3.py",
+             "models/gnn/chunked.py", "models/gnn/gatedgcn.py",
+             "models/gnn/graphcast.py", "models/gnn/nequip.py",
+             "models/gnn/equiformer_v2.py", "configs/shapes.py",
+             "configs/registry.py", "training/steps.py", "interop.py",
+             "launch/smoke.py"]
+
+
+@pytest.mark.parametrize("module", GNN_SLICE)
+def test_gnn_slice_modules_are_scanned(module):
+    test_runtime_slice_modules_are_scanned(module)
+
+
+def test_gnn_slice_holds_every_module_of_the_jax_family():
+    ref = sorted(p.name for p in (REPO / "src" / "repro" / "models" / "gnn").glob("*.py"))
+    port = sorted(p.name for p in (REPO / "src" / "repro_torch" / "models" / "gnn").glob("*.py"))
+    assert port == ref and len(port) == 9
+    assert {f"models/gnn/{n}" for n in port} <= set(GNN_SLICE)
+
+
+def test_gnn_path_launches_nothing_on_cpu_tensors():
+    """The GNN family reaches no TPU kernel: a train step of each model and
+    NequIP's forces launch no kernel (on the CPU, nor on the card: phase M
+    of chip_smoke.py reads the same counters there)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.models.gnn import nequip
+
+    wrappers = [matrix_ingest, matrix_ingest_edges, matrix_lookup,
+                matrix_lookup_edges, reach_step, reach_closure, embedding_bag]
+    from repro_torch.kernels import embedding_bag_backward
+    wrappers.append(embedding_bag_backward)
+    for fn in wrappers:
+        fn.launches = 0
+    small = {"gatedgcn": dict(n_layers=1, d_hidden=8),
+             "graphcast": dict(n_layers=1, d_hidden=8, latent_dtype="float32"),
+             "nequip": dict(n_layers=1, d_hidden=4, edge_chunk=4096),
+             "equiformer-v2": dict(n_layers=1, d_hidden=8, l_max=2, n_heads=2,
+                                   edge_chunk=4096)}
+    for arch, kw in small.items():
+        cfg = dataclasses.replace(registry.archs()[arch].config, **kw)
+        gen = torch.Generator().manual_seed(0)
+        params = registry.init_gnn_params(arch, cfg, gen, 16, "cpu")
+        cell = registry.build_gnn_cell(arch, "molecule", params,
+                                       np.random.default_rng(0), "cpu", cfg=cfg)
+        assert torch.isfinite(cell.run()["loss"])
+        if arch == "nequip":
+            _, f = nequip.energy_and_forces(cfg, params, cell.inputs[0]["graph"])
+            assert f.shape == (4_096, 3)
+    assert all(fn.launches == 0 for fn in wrappers)
+
+
 def test_training_path_launches_nothing_on_cpu_tensors():
     from repro_torch.kernels import embedding_bag_backward
     from repro_torch.training import AdamWConfig, init_train_state
@@ -161,7 +229,8 @@ def test_only_items_12_and_13b_stay_refused_by_query_serve():
     WorkerServer.__init__, serve_worker_session, run_ingest_worker,
     run_ranks, choose_topology, tmodel.init_params, tmodel.init_cache,
     tmodel.init_layer, ttrain.synthetic_lm_batch,
-], ids=lambda f: f.__qualname__)
+    *_GNN_CONSTRUCTORS,
+], ids=lambda f: f"{f.__module__.rsplit('.', 1)[-1]}.{f.__qualname__}")
 def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
