@@ -217,8 +217,10 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      time).  Then one NequIP energy+gradient step at ``minibatch_lg`` with
      the messages in 3 chunks (``chunked_edge_aggregate``) and all at once
      (``aggregate_unchunked``), each twice: the chunked peak must be the
-     lower, the losses equal within 1e-4, and every gradient leaf within
-     3 times the largest gap between two runs of one path.  The four smoke
+     lower and the losses equal within 1e-4; then the same step once each
+     way in float64, where the atomics' order no longer shows: losses
+     within 1e-12 relative and every gradient leaf within 1e-10 of the
+     leaf's largest |g|.  The four smoke
      configs on the card and on the CPU from one set of weights: every
      gradient leaf of the first step within 1e-5 of the leaf's largest
      |g|, then 3 train steps (losses within 1e-5 relative, parameters
@@ -226,6 +228,34 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      repro_torch.launch.smoke --all`` runs on the card (10 lines).  It
      runs after B, so that B's profiler sessions follow the same phases
      as before the GNNs came.
+
+  N. The shardings slice (``launch/shardings.py``, the transformer's
+     mesh-only variants, ``configs/registry.build_cell``,
+     ``launch/dryrun.py``).  N1: ``python -m repro_torch.launch.dryrun``
+     in child processes on fake ranks (the "fake" process group, rank 0 of
+     256 or 512; tensors without storage: a PLAN for 256 and 512 cards, no
+     work on this card) for mixtral-8x7b ``train_4k``, nequip
+     ``ogb_products`` and fm ``train_batch`` on both production meshes,
+     and ``--sketch --both-meshes``; each record's per-rank argument and
+     peak GiB against this card's memory and its collective bytes; a
+     record with ``ok: false`` fails.  The children start first and run
+     on the host while N2 runs.  N2: four gloo ranks on ``cuda:0``, a (2,
+     2) ("data", "model") mesh, float32: one train step of mixtral-8x7b
+     (full width: d 4096, d_ff 14,336, 8 experts top-2, vocab 32,000;
+     depth cut to 1 layer) and of gemma2-2b (d 2304, vocab 256,000, tied
+     embedding through the sharded lookup; depth cut to 2 layers, one
+     local + global period), batch 8 x seq 512, ``seq_parallel=("data",)``,
+     ``zero3_gather``, mixtral ``moe_groups=2``; then the FM
+     ``serve_bulk`` cell table-parallel over the full 10,000,384-row
+     table, every rank launching ``embedding_bag`` 3 times on its rows.
+     Each is held against the same computation unsharded in this process
+     on the card, run first (the LMs twice) and handed to the ranks: the
+     losses within 1e-5 relative, every gradient block within max(1e-5,
+     3 x the largest gap between the two unsharded runs) of its leaf's
+     largest |g|, FM logits within rtol 1e-5, atol 1e-6.  Per model: the
+     step time (first and second step), each rank's peak memory and
+     ``collective_stats()`` by kind (calls, bytes, seconds, host-carried
+     share).
 
 The last lines are one ``{"kernels": [...]}`` JSON object and then
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is summed
@@ -348,12 +378,16 @@ GNN_OGB_CUTS = {
 # NequIP at minibatch_lg, one energy+gradient step: chunked in 3 chunks
 # against every message at once; the energy sums 169,984 per-atom terms by
 # float atomics in a varying order (two runs of one path differ by ~3e-5
-# of the loss), so the losses agree within 1e-4; every gradient leaf,
-# relative to its largest |g|, within 3 times the largest gap between two
-# runs of one path (at least 1e-6)
+# of the loss), so the float32 losses agree within 1e-4.  In float32 the
+# gradients of two runs of one path differ by 7e-7 to 2e-5 of a leaf's
+# largest |g| from run to run, as much as chunked and plain do, so no
+# float32 bound tells the two apart; the gradients are compared in
+# float64, where that order moves the loss and the gradients by a few
+# ulps: losses within 1e-12 relative, every gradient leaf within 1e-10 of
+# its largest |g|
 GNN_CHUNKED_CHUNKS = 3
 GNN_CHUNKED_LOSS_REL = 1e-4
-GNN_CHUNKED_GRAD_NOISE, GNN_CHUNKED_GRAD_FLOOR = 3, 1e-6
+GNN_CHUNKED_F64_LOSS_REL, GNN_CHUNKED_F64_GRAD_REL = 1e-12, 1e-10
 # card vs CPU at the smoke sizes from one set of weights: every gradient
 # leaf of the first step within 1e-5 of the leaf's largest |g| (float32
 # against float64 on the CPU differs by at most 3e-6 there), then 3 steps:
@@ -364,6 +398,20 @@ GNN_CHUNKED_GRAD_NOISE, GNN_CHUNKED_GRAD_FLOOR = 3, 1e-6
 GNN_CPU_STEPS = 3
 GNN_GRAD_REL = 1e-5
 GNN_LOSS_REL = 1e-5
+
+
+# phase N: the dry run's cells (N1) and the mesh-only variants on 4 ranks
+N_DRYRUN_CELLS = (("mixtral-8x7b", "train_4k"), ("nequip", "ogb_products"),
+                  ("fm", "train_batch"))
+N_MESH = (2, 2)
+N_BATCH, N_SEQ = 8, 512
+N_STEPS = 2  # both timed; the first's gradients, both losses gated
+N_LMS = (("mixtral-8x7b", 1, 2), ("gemma2-2b", 2, 1))  # arch, layers, groups
+# two unsharded runs agree bit for bit on the card, so the gradient blocks'
+# tolerance is float32 reassociation's: the sharded path sums d_ff and the
+# vocab in other orders (worst seen at full width 6.6e-6 of a leaf's max)
+N_GRAD_REL = 3e-5
+N_LOSS_REL = 1e-5
 
 
 def card_line() -> str:
@@ -865,9 +913,10 @@ def _capture_bags(torch, fn):
         calls.append((table, idx, weights, out))
         return out
 
-    def record_pair(table, squared, idx):
-        out = real_pair(table, squared, idx)
-        calls.extend([(table, idx, None, out[0]), (squared, idx, None, out[1])])
+    def record_pair(table, squared, idx, weights=None):
+        out = real_pair(table, squared, idx, weights)
+        calls.extend([(table, idx, weights, out[0]),
+                      (squared, idx, weights, out[1])])
         return out
 
     fm_mod.embedding_bag, fm_mod.sum_and_square_bags = record, record_pair
@@ -2740,15 +2789,16 @@ def _gnn_card_vs_cpu(smoke, arch):
 def _chunked_vs_plain(smoke, card):
     """One NequIP energy+gradient step at minibatch_lg (full config) with
     the messages in 3 chunks (``chunked_edge_aggregate``) and all at once
-    (``aggregate_unchunked``), each twice: peak memory and time of each,
-    the losses and every gradient leaf chunked against plain."""
+    (``aggregate_unchunked``), each twice in float32: peak memory, time
+    and loss of each; then once each way in float64: the losses and every
+    gradient leaf chunked against plain."""
     torch = smoke.torch
     import numpy as np
 
     from repro_torch.configs import registry
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.models.gnn import nequip
-    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.optimizer import tree_leaves, tree_map
 
     shape = GNN_SHAPES["minibatch_lg"]
     n_edges = -(-registry.sampled_subgraph_sizes(shape)[1] // 512) * 512
@@ -2788,18 +2838,43 @@ def _chunked_vs_plain(smoke, card):
                 f"chunked peak {ch['peak_gib']:.3f} GiB below the plain "
                 f"{pl['peak_gib']:.3f} GiB, same loss ({ch['loss']!r} / "
                 f"{pl['loss']!r})")
-    # the gradients: each path's two runs differ by the float atomics'
-    # order; chunked against plain must stay within a few times that
+    # float32 gradients, shown: each path's two runs differ by the float
+    # atomics' order, and chunked against plain by as much
     noise = max(max(_rel_diffs(torch, *grads[c])) for c in (True, False))
-    limit = max(GNN_CHUNKED_GRAD_NOISE * noise, GNN_CHUNKED_GRAD_FLOOR)
-    cross = _rel_diffs(torch, grads[True][-1], grads[False][-1])
+    cross = max(_rel_diffs(torch, grads[True][-1], grads[False][-1]))
+    print(f"  float32 gradients: chunked vs plain up to {cross:.3e} of a "
+          f"leaf's largest |g|; two runs of one path up to {noise:.3e}")
+    del grads
+    torch.cuda.empty_cache()
+
+    def f64(x):
+        return x.double() if torch.is_floating_point(x) else x
+
+    p64 = tree_map(lambda x: f64(x.detach()).requires_grad_(x.requires_grad),
+                   params)
+    g64 = g.replace(**{f.name: f64(getattr(g, f.name))
+                       for f in dataclasses.fields(g)
+                       if isinstance(getattr(g, f.name), torch.Tensor)})
+    target = f64(batch["energy"])
+    loss64, grads64 = {}, {}
+    for chunked in (True, False):
+        e = nequip.energy(cfg, p64, g64, g64.positions, chunked=chunked)
+        loss = torch.mean((e - target) ** 2)
+        grads64[chunked] = [x.cpu() for x in
+                            torch.autograd.grad(loss, tree_leaves(p64))]
+        loss64[chunked] = float(loss.detach())
+        del e, loss
+    lrel = abs(loss64[True] - loss64[False]) / abs(loss64[False])
+    cross = _rel_diffs(torch, grads64[True], grads64[False])
     worst = max(range(len(cross)), key=cross.__getitem__)
-    smoke.check(max(cross) <= limit,
-                f"chunked vs plain: every one of {len(cross)} gradient leaves "
-                f"within {limit:.3e} of the leaf's largest |g| (worst "
-                f"{cross[worst]:.3e}, leaf {worst}; two runs of one path "
-                f"differ by up to {noise:.3e})")
-    del params, batch, g, grads
+    smoke.check(lrel <= GNN_CHUNKED_F64_LOSS_REL
+                and cross[worst] <= GNN_CHUNKED_F64_GRAD_REL,
+                f"chunked vs plain in float64: losses within "
+                f"{GNN_CHUNKED_F64_LOSS_REL} relative ({lrel:.3e}), every one "
+                f"of {len(cross)} gradient leaves within "
+                f"{GNN_CHUNKED_F64_GRAD_REL} of the leaf's largest |g| (worst "
+                f"{cross[worst]:.3e}, leaf {worst})")
+    del p64, g64, target, grads64, params, batch, g
     torch.cuda.empty_cache()
     return out
 
@@ -3148,7 +3223,8 @@ def _bench_bag_backward(smoke, call, label):
     out_k, again = kernel(), kernel()
     torch.cuda.synchronize()
     out_k, again = out_k.cpu(), again.cpu()
-    cpu = [t.cpu() if isinstance(t, torch.Tensor) else t for t in call]
+    cpu = [t.detach().cpu() if isinstance(t, torch.Tensor) else t
+           for t in call]
     out_p = embedding_bag_backward_plain(cpu[0], cpu[1], num_rows, cpu[3],
                                          cpu[4])
     err = float((out_k - out_p).abs().max())
@@ -3641,6 +3717,431 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
     ]
 
 
+# ------------------------------------------------------------ phase N --
+
+def _n1_start(out_dir: str) -> list:
+    """Start the dry-run children of N1, each writing its own records."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = [[f"{a}:{s}:{mp}", "--arch", a, "--shape", s]
+            + (["--multi-pod"] if mp else [])
+            for a, s in N_DRYRUN_CELLS for mp in (False, True)]
+    runs.append(["sketch", "--sketch", "--both-meshes"])
+    procs = []
+    for i, (label, *flags) in enumerate(runs):
+        out = os.path.join(out_dir, f"dryrun_{i}.jsonl")
+        procs.append((label, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *flags,
+             "--out", out], cwd=out_dir, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _n1_collect(smoke, procs, t0: float) -> list:
+    torch = smoke.torch
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    records = []
+    for label, out, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        recs = []
+        if os.path.exists(out):
+            with open(out) as f:
+                recs = [json.loads(line) for line in f if line.strip()]
+        smoke.check(proc.returncode == 0 and recs and all(r["ok"] for r in recs),
+                    f"N1 dry run {label}: exit {proc.returncode}, "
+                    f"{len(recs)} records, every one ok")
+        if proc.returncode != 0:
+            print("\n".join("    " + ln for ln in text.splitlines()[-15:]))
+        records += recs
+    print(f"  N1: a plan on fake ranks (256 and 512), nothing ran on the "
+          f"card; its memory {card_bytes / 2**30:.2f} GiB")
+    for r in records:
+        if not r["ok"]:
+            continue
+        m = r["memory"]
+        print(f"  N1 {r['arch']} {r['shape']} on {r['mesh']}: per rank "
+              f"arguments {m['argument_bytes'] / 2**30:.3f} GiB, peak "
+              f"{m['peak_bytes'] / 2**30:.3f} GiB "
+              f"({m['peak_bytes'] / card_bytes:.1%} of the card), "
+              f"collectives {r['collectives']['total_bytes'] / 2**30:.3f} GiB "
+              f"{json.dumps(r['collectives']['counts'])}, "
+              f"{r['flops'] / 1e12:.2f} TFLOP traced, "
+              f"model {r['model_flops'] / 1e12:.2f} TFLOP, trace {r['trace_s']}s")
+    print(f"  N1 wall {time.perf_counter() - t0:.1f}s (children in parallel)")
+    return records
+
+
+def _n_lm_cfg(name: str, layers: int, groups: int, mesh: bool):
+    from repro_torch.configs import lm
+
+    cfg = dataclasses.replace(lm.LM_CONFIGS[name], n_layers=layers,
+                              dtype="float32", moe_groups=groups)
+    if mesh:
+        cfg = dataclasses.replace(cfg, seq_parallel=("data",), zero3_gather=True)
+    return cfg
+
+
+def _n_tokens(name: str, vocab: int):
+    """(tokens, labels), independent draws."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    return rng.integers(0, vocab, (2, N_BATCH, N_SEQ)).astype(np.int32)
+
+
+def _n_reference(smoke, name, layers, groups):
+    """The unsharded step's loss and gradients on the card, twice, the
+    largest gap between the two runs (relative to each leaf's max |g|),
+    and every rank's blocks of the parameters and the first run's
+    gradients (the full tensors freed)."""
+    torch = smoke.torch
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.transformer import model as tm
+    from repro_torch.training.steps import lm_loss_fn
+
+    cfg = _n_lm_cfg(name, layers, groups, mesh=False)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    params = tm.init_params(cfg, gen, "cuda")
+    tok, lab = torch.as_tensor(_n_tokens(name, cfg.vocab), device="cuda")
+    keys = [k for k, _ in sh.tree_items(params)]
+    leaves = [v for _, v in sh.tree_items(params)]
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = lm_loss_fn(cfg)(params, {"tokens": tok, "labels": lab})
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        runs.append((float(loss.detach()), grads, time.perf_counter() - t0))
+        del loss
+    gap = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(runs[0][1], runs[1][1]))
+    print(f"  N2 {name} unsharded ({sum(p.numel() for p in leaves) / 1e9:.3f} "
+          f"B params, f32, {layers} layer(s)): loss {runs[0][0]:.6f} / "
+          f"{runs[1][0]:.6f}, fwd+bwd {runs[0][2]:.2f}s / {runs[1][2]:.2f}s, "
+          f"largest gap between the two runs {gap:.3g} of a leaf's max |g|, "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    mesh = sh.MeshShape(("data", "model"), N_MESH)
+    specs = sh.lm_param_specs(params, mesh)
+    spec_of = dict(sh.tree_items(specs))
+    grads, loss0 = dict(zip(keys, runs[0][1])), runs[0][0]
+    del runs
+    gmax = {k: float(g.abs().max()) for k, g in grads.items()}
+    plain = sh.tree_map(lambda _k, v: v.detach(), params)
+    blocks = []
+    for r in range(math.prod(N_MESH)):
+        coord = dict(zip(mesh.mesh_dim_names, divmod(r, N_MESH[1])))
+        blocks.append((sh.shard_tree(plain, specs, mesh, coord),
+                       {k: sh.local_block(g, spec_of[k], mesh, coord)
+                        for k, g in grads.items()}))
+    del plain
+    # the unsharded AdamW step on the first run's gradients, and the second
+    # step's loss, as the ranks take them
+    from repro_torch.configs.registry import lm_opt_cfg
+    from repro_torch.training import init_train_state
+    from repro_torch.training.optimizer import adamw_update, tree_unflatten
+
+    opt_cfg = lm_opt_cfg()
+    opt_m = adamw_update(opt_cfg, tree_unflatten(
+        params, [grads[k] for k in keys]), init_train_state(params, opt_cfg).opt,
+        params)[2]
+    del grads
+    with torch.no_grad():
+        loss1 = float(lm_loss_fn(cfg)(params, {"tokens": tok, "labels": lab})[0])
+    print(f"  N2 {name} unsharded AdamW step: grad norm "
+          f"{float(opt_m['grad_norm']):.6f}, the next step's loss {loss1:.6f}")
+    del params, leaves
+    torch.cuda.empty_cache()
+    return {"blocks": blocks, "gmax": gmax, "loss": loss0, "gap": gap,
+            "vocab": cfg.vocab, "grad_norm": float(opt_m["grad_norm"]),
+            "loss1": loss1}
+
+
+def _n_lm_rank(mesh, dev, coord, job):
+    """One LM of N2 on this rank: N_STEPS train steps on its blocks, the
+    first step's gradient blocks held against the unsharded ones."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import registry
+    from repro_torch.distributed import group, mesh_ops
+    from repro_torch.launch import shardings as sh
+    from repro_torch.training import init_train_state
+    from repro_torch.training.steps import lm_loss_fn, mesh_grads, mesh_update
+
+    name, layers, groups, blocks, gmax, tokens = job
+    cfg = _n_lm_cfg(name, layers, groups, mesh=True)
+    # this rank's blocks, cut by the parent and shared on the card: the
+    # rank trains them in place
+    local, grads_ref = blocks[dist.get_rank()]
+    state = init_train_state(local, registry.lm_opt_cfg())
+    specs = sh.lm_param_specs(local, mesh)
+    for leaf in sh.tree_items(local):
+        leaf[1].requires_grad_(True)
+    tok, lab = (sh.local_block(torch.as_tensor(t, device=dev),
+                               sh.P(("data",), None), mesh) for t in tokens)
+    del local
+    rec = {"steps_s": [], "gaps": {}, "on": str(tok.device), "losses": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(N_STEPS):
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        group.reset_collective_stats()
+        t0 = time.perf_counter()
+        with mesh_ops.use_mesh(mesh):
+            loss, _, grads = mesh_grads(lm_loss_fn(cfg), state.params,
+                                        {"tokens": tok, "labels": lab},
+                                        specs, mesh)
+            if i == 0:  # the check's time stays out of the step's
+                torch.cuda.synchronize(dev)
+                t_grad = time.perf_counter() - t0
+                for (k, _), g in zip(sh.tree_items(specs), grads):
+                    rec["gaps"][k] = float((g - grads_ref[k]).abs().max()
+                                           / max(gmax[k], 1e-30))
+                rec["loss"] = float(loss)
+                t0 = time.perf_counter() - t_grad
+            else:
+                rec["losses"].append(float(loss))
+            state, opt_m = mesh_update(registry.lm_opt_cfg(), state, grads,
+                                       specs, mesh)
+            if i == 0:
+                rec["grad_norm"] = float(opt_m["grad_norm"])
+        torch.cuda.synchronize(dev)
+        rec["steps_s"].append(time.perf_counter() - t0)
+        del grads
+    del state, grads_ref
+    rec["stats"] = group.collective_stats()  # the last step's
+    rec["peak"] = torch.cuda.max_memory_allocated(dev)
+    _n_release(torch, dev, blocks)
+    return rec
+
+
+def _n_release(torch, dev, received) -> None:
+    """Drop this rank's hold on what the parent shared on the card: a
+    spawned rank ends with ``os._exit``, so a shared block still held then
+    is never handed back and stays allocated in the parent."""
+    import gc
+
+    received.clear()
+    gc.collect()
+    torch.cuda.synchronize(dev)
+
+
+def _n_fm_rank(mesh, dev, coord, job):
+    """The table-parallel FM ``serve_bulk`` on this rank's rows, and each of
+    the run's three bags against its plain version on the same inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import group, mesh_ops
+    from repro_torch.kernels import embedding_bag, embedding_bag_plain
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models.recsys import fm as fm_mod
+
+    cfg = fm_mod.FMConfig(n_fields=39, embed_dim=10, total_vocab=10_000_000)
+    full, ids, logits_ref = job
+    specs = sh.fm_param_specs(full, mesh)
+    local = sh.tree_map(lambda _k, t, p: sh.local_block(t, p, mesh), full, specs)
+    ids_l = sh.local_block(ids, sh.P(("data",), None), mesh)
+    tables = fm_mod.TableRows().of(local)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad(), mesh_ops.use_mesh(mesh):
+        fm_mod.forward(cfg, tables, ids_l, mesh)  # warm; squares the rows once
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        group.reset_collective_stats()
+        embedding_bag.launches = 0
+        t0 = time.perf_counter()
+        logits = fm_mod.forward(cfg, tables, ids_l, mesh)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = embedding_bag.launches
+        # the run's bags again, kernel against plain: these launches are
+        # not the main path's and are not counted
+        idx, w = fm_mod.table_parallel_rows(cfg, ids_l, tables.emb.shape[0],
+                                            mesh)
+        bags = []
+        for name, table in (("emb", tables.emb), ("emb*emb", tables.squared_table()),
+                            ("lin", tables.lin)):
+            got, want = embedding_bag(table, idx, w), embedding_bag_plain(table, idx, w)
+            bags.append({"table": name, "equal": bool(torch.equal(got, want)),
+                         "max_abs_err": float((got - want).abs().max()),
+                         "shape": f"table{list(table.shape)} idx{list(idx.shape)} "
+                                  "weighted 0/1"})
+        stats = group.collective_stats()
+    ref = logits_ref[sh.block_slices(logits_ref.shape, sh.P(("data",)), mesh,
+                                     coord)]
+    out = {"launches": launches, "s": wall, "rows": int(local["emb"].shape[0]),
+           "on": str(local["emb"].device), "bags": bags,
+           "close": bool(torch.allclose(logits, ref, rtol=1e-5, atol=1e-6)),
+           "max_abs": float((logits - ref).abs().max()), "stats": stats,
+           "peak": torch.cuda.max_memory_allocated(dev)}
+    del ids_l, ref, logits_ref, tables, local, idx, w
+    _n_release(torch, dev, full)
+    return out
+
+
+def _n_rank(rank, world, kind, job):
+    """One rank of N2 on a (2, 2) mesh: an LM's steps or the FM."""
+    from repro_torch.distributed import group
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_mesh
+
+    dev = group.rank_device()
+    if dev.type != "cuda":
+        raise RuntimeError(f"rank {rank} runs on {dev}, not on the card")
+    mesh = make_mesh(N_MESH, ("data", "model"))
+    coord = sh.mesh_coord(mesh)
+    run = _n_lm_rank if kind == "lm" else _n_fm_rank
+    return {"coord": coord, **run(mesh, dev, coord, job)}
+
+
+def _n_free(torch) -> None:
+    """Free what the ranks were handed: the spawned processes' objects
+    (which hold their arguments) first, then the shared blocks."""
+    import gc
+
+    gc.collect()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    print(f"  N2: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after the ranks")
+
+
+def _n_stats_line(stats: dict) -> str:
+    return ", ".join(
+        f"{k} {v['calls']} calls {v['bytes'] / 2**20:.1f} MiB "
+        f"{v['seconds']:.3f}s host-carried "
+        f"{v['host_bytes'] / max(v['bytes'], 1):.0%}"
+        for k, v in stats.items() if v["calls"])
+
+
+def _count_phase_n(kernels: list, fms: list) -> None:
+    """Phase N2's ``embedding_bag`` launches in the kernels line: the four
+    ranks' main-path launches, from their returns, and the bit-equality of
+    their calls against the plain version."""
+    row = next(k for k in kernels if k["name"] == "embedding_bag")
+    n = sum(f["launches"] for f in fms)
+    row["launches_by_path"]["N2 fm serve_bulk, table-parallel (4 ranks)"] = n
+    row["launches"] += n
+    bags = [b for f in fms for b in f["bags"]]
+    row["max_abs_err"] = max(row["max_abs_err"], *(b["max_abs_err"] for b in bags))
+    row["exact"] = row["exact"] and all(b["equal"] for b in bags)
+    row["launches_counted_in"] = (
+        "this process, and phase N2's four rank processes (from their "
+        "returns); the kernels that phase J's worker child processes and "
+        "listen host launch are not counted here")
+
+
+def phase_mesh(smoke, card):
+    """N1: the dry run's plan on fake ranks, in child processes; N2: the
+    mesh-only variants at full width on 4 gloo ranks of the card."""
+    torch = smoke.torch
+    import numpy as np
+
+    from repro_torch.distributed import choose_topology, run_ranks
+    from repro_torch.models.recsys import fm as fm_mod
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase-n-")
+    procs = _n1_start(tmp)
+
+    n = math.prod(N_MESH)
+    print(f"  N2 mesh {N_MESH}: {choose_topology(n, 'cuda').describe()}; "
+          "each reference is handed to the ranks on the card")
+    out = {}
+    try:
+        for name, layers, groups in N_LMS:
+            ref = _n_reference(smoke, name, layers, groups)
+            job = (name, layers, groups, ref.pop("blocks"), ref["gmax"],
+                   _n_tokens(name, ref["vocab"]))
+            t1 = time.perf_counter()
+            print(f"  N2 {name}: this process holds "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (the ranks' "
+                  "blocks and reference gradient blocks)")
+            ranks = run_ranks(_n_rank, n, "lm", job, device="cuda",
+                              timeout_s=900)
+            print(f"  N2 {name}: ranks {time.perf_counter() - t1:.1f}s (spawn, "
+                  f"{N_STEPS} steps)")
+            del job
+            _n_free(torch)
+            smoke.check([tuple(r["coord"].values()) for r in ranks]
+                        == [divmod(r, N_MESH[1]) for r in range(n)],
+                        f"N2 {name}: rank r at row-major coordinate, the "
+                        "blocks it was handed")
+            tol = max(N_GRAD_REL, 3 * ref["gap"])
+            worst, leaf = max((g, k) for r in ranks for k, g in r["gaps"].items())
+            smoke.check(all(abs(r["loss"] - ref["loss"]) <= N_LOSS_REL
+                            * abs(ref["loss"]) for r in ranks)
+                        and all(r["on"].startswith("cuda") for r in ranks),
+                        f"N2 {name}: every rank's loss "
+                        f"{[round(r['loss'], 6) for r in ranks]} within "
+                        f"{N_LOSS_REL} of the unsharded {ref['loss']:.6f}, on "
+                        "the card")
+            smoke.check(worst <= tol,
+                        f"N2 {name}: every gradient block within {tol:.3g} of "
+                        f"its leaf's max |g| (worst {worst:.3g} at {leaf}, "
+                        f"{len(ranks[0]['gaps'])} leaves x {n} ranks)")
+            smoke.check(all(abs(r["grad_norm"] - ref["grad_norm"])
+                            <= N_LOSS_REL * ref["grad_norm"]
+                            and abs(r["losses"][0] - ref["loss1"])
+                            <= N_LOSS_REL * abs(ref["loss1"]) for r in ranks),
+                        f"N2 {name}: every rank's global grad norm "
+                        f"{[round(r['grad_norm'], 6) for r in ranks]} (from its "
+                        f"blocks) and second step's loss "
+                        f"{[round(r['losses'][0], 6) for r in ranks]} within "
+                        f"{N_LOSS_REL} of the unsharded step's "
+                        f"{ref['grad_norm']:.6f} and {ref['loss1']:.6f}")
+            for i, r in enumerate(ranks):
+                print(f"  N2 {name} rank {i} {r['coord']}: steps "
+                      f"{', '.join(f'{t:.2f}s' for t in r['steps_s'])}, peak "
+                      f"{r['peak'] / 2**30:.2f} GiB; {_n_stats_line(r['stats'])}")
+            out[name] = ranks
+        cfg_fm = fm_mod.FMConfig(n_fields=39, embed_dim=10,
+                                 total_vocab=10_000_000)
+        fm = fm_mod.init_params(cfg_fm, torch.Generator(device="cuda")
+                                .manual_seed(29), "cuda")
+        ids = torch.as_tensor(np.random.default_rng(31).integers(
+            0, 1 << 30, (262_144, 39), dtype=np.int32), device="cuda")
+        with torch.no_grad():
+            logits = fm_mod.forward(cfg_fm, fm, ids)
+        job = ({"bias": fm.bias.detach(), "emb": fm.emb.detach(),
+                "lin": fm.lin.detach()}, ids, logits)
+        fms = run_ranks(_n_rank, n, "fm", job, device="cuda", timeout_s=600)
+        del job, fm, ids, logits
+        _n_free(torch)
+        smoke.check(all(f["launches"] == 3 and f["on"].startswith("cuda")
+                        for f in fms),
+                    f"N2 fm serve_bulk: every rank launched embedding_bag 3 "
+                    f"times on its {fms[0]['rows']} rows of the card "
+                    f"({[f['launches'] for f in fms]})")
+        smoke.check(all(f["close"] for f in fms),
+                    "N2 fm serve_bulk: table-parallel logits within rtol "
+                    "1e-5, atol 1e-6 of the unsharded cell's (max |diff| "
+                    f"{max(f['max_abs'] for f in fms):.3g})")
+        smoke.check(all(b["equal"] for f in fms for b in f["bags"]),
+                    "N2 fm serve_bulk: every rank's 3 embedding_bag calls "
+                    "bit-equal to embedding_bag_plain on the same table "
+                    f"block, shifted ids and 0/1 weights ({fms[0]['bags'][0]['shape']})")
+        for i, f in enumerate(fms):
+            print(f"  N2 fm rank {i} {f['coord']}: forward {f['s'] * 1e3:.2f} "
+                  f"ms, peak {f['peak'] / 2**30:.2f} GiB; "
+                  f"{_n_stats_line(f['stats'])}")
+        out["fm"] = fms
+        out["dryrun"] = _n1_collect(smoke, procs, t0)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  {card}; phase N {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3691,6 +4192,9 @@ def main() -> int:
     del sl, cmp, reach, fm, serve, bg, net, train
     if card:
         smoke.phase("M. GNNs", phase_gnn, smoke, card)
+        mesh = smoke.phase("N. the shardings slice", phase_mesh, smoke, card)
+        if kernels and mesh:
+            _count_phase_n(kernels, mesh["fm"])
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

@@ -1,11 +1,21 @@
-"""Architecture registry and cell builders: the FM and GNN parts of
+"""Architecture registry and cell builders: the port of
 ``repro/configs/registry.py``.
 
-A cell is (arch x shape): the step function and its inputs.  The port
-builds the FM's train, serve and retrieval cells and the GNNs' train cells
-on one card.  The JAX package's LM cells, ``build_cell`` / ``all_cells``
-and its shardings come with the shardings slice (ROADMAP.md, §A, 16c);
-its mesh is ``repro_torch.launch.mesh``.
+A cell is (arch x shape): the step function and its inputs.  Two kinds:
+
+  * ``Cell``, one card: the FM's train, serve and retrieval cells
+    (``build_fm_cell``) and the GNNs' train cells (``build_gnn_cell``),
+    over real tensors; ``run()`` takes a step.
+  * ``MeshCell``, one rank of a mesh: what the JAX package's ``Cell``
+    holds for its dry run, for every cell of ``all_cells()``
+    (``build_cell``: the LM cells of ``build_lm_cell`` and the mesh forms
+    of the GNN and FM cells).  Its step runs on one rank's blocks of the
+    arguments (``launch/shardings.py``); its global argument shapes and
+    specs give every rank's blocks.
+
+Cells = (arch x applicable shape).  Skips, as in the JAX package: the
+pure-global-attention archs (internlm2-20b, grok-1-314b) take no
+long_500k.
 """
 from __future__ import annotations
 
@@ -16,16 +26,26 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.configs import lm as lm_configs
 from repro_torch.configs.shapes import (
     GNN_SHAPES,
+    LM_SHAPES,
     RECSYS_SHAPES,
     GNNShape,
     sampled_subgraph_sizes,
 )
+from repro_torch.distributed import mesh_ops
+from repro_torch.launch import shardings as sh
+from repro_torch.launch.mesh import dp_axes
+from repro_torch.launch.shardings import P, ShapeDtype
 from repro_torch.models.recsys import fm as fm_mod
 from repro_torch.training import AdamWConfig, init_train_state, make_train_step
-from repro_torch.training.optimizer import tree_leaves
-from repro_torch.training.steps import fm_loss_fn
+from repro_torch.training.optimizer import AdamWState, tree_leaves
+from repro_torch.training.steps import (
+    TrainState,
+    fm_loss_fn,
+    make_mesh_train_step,
+)
 
 # the JAX package's FM train cell (repro/configs/registry.py build_fm_cell)
 FM_TRAIN_OPT = AdamWConfig(lr_peak=1e-3, warmup_steps=100, total_steps=5000)
@@ -34,7 +54,7 @@ FM_TRAIN_OPT = AdamWConfig(lr_peak=1e-3, warmup_steps=100, total_steps=5000)
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str  # "gnn" | "recsys" (the LM cells come with 16c)
+    family: str  # "lm" | "gnn" | "recsys"
     config: Any
     shape_names: tuple[str, ...]
 
@@ -64,10 +84,20 @@ def _fm_config() -> fm_mod.FMConfig:
 
 @functools.lru_cache(maxsize=1)
 def archs() -> dict[str, Arch]:
-    out = {name: Arch(name, "gnn", cfg, tuple(GNN_SHAPES))
-           for name, cfg in _gnn_configs().items()}
+    lm_shapes_full = tuple(LM_SHAPES)
+    lm_shapes_fullattn = ("train_4k", "prefill_32k", "decode_32k")  # no 500k
+    out: dict[str, Arch] = {}
+    for name, cfg in lm_configs.LM_CONFIGS.items():
+        shapes = lm_shapes_fullattn if cfg.is_pure_global else lm_shapes_full
+        out[name] = Arch(name, "lm", cfg, shapes)
+    for name, cfg in _gnn_configs().items():
+        out[name] = Arch(name, "gnn", cfg, tuple(GNN_SHAPES))
     out["fm"] = Arch("fm", "recsys", _fm_config(), tuple(RECSYS_SHAPES))
     return out
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a.name, s) for a in archs().values() for s in a.shape_names]
 
 
 @dataclasses.dataclass
@@ -194,7 +224,9 @@ def perturb_constant_leaves(params, generator: torch.Generator) -> None:
 def gnn_loss_fn(arch_name: str, cfg):
     """The JAX package's ``_gnn_forward_and_loss``: node classification for
     GatedGCN, next-state MSE for GraphCast, energy MSE for NequIP and
-    EquiformerV2."""
+    EquiformerV2.  On a mesh (a split graph, ``models/gnn/graph.py``) each
+    returns this rank's share of the loss."""
+    from repro_torch.models.gnn.graph import node_mean, share
     from repro_torch.training import steps as tsteps
 
     module = gnn_module(arch_name)
@@ -203,20 +235,20 @@ def gnn_loss_fn(arch_name: str, cfg):
     if arch_name == "graphcast":
         def loss_fn(params, batch):
             pred = module.forward(cfg, params, batch["graph"])
-            loss = torch.mean((pred - batch["target"]) ** 2)
+            loss = node_mean((pred - batch["target"]) ** 2)
             return loss, {"mse": loss}
         return loss_fn
     if arch_name == "nequip":
         def loss_fn(params, batch):
             g = batch["graph"]
             e = module.energy(cfg, params, g, g.positions)
-            loss = torch.mean((e - batch["energy"]) ** 2)
+            loss = share(torch.mean((e - batch["energy"]) ** 2))
             return loss, {"e_mse": loss}
         return loss_fn
     if arch_name == "equiformer-v2":
         def loss_fn(params, batch):
             e = module.forward(cfg, params, batch["graph"])
-            loss = torch.mean((e - batch["energy"]) ** 2)
+            loss = share(torch.mean((e - batch["energy"]) ** 2))
             return loss, {"e_mse": loss}
         return loss_fn
     raise KeyError(arch_name)
@@ -350,3 +382,275 @@ def build_gnn_cell(arch_name: str, shape_name: str, params, rng:
                 make_train_step(gnn_loss_fn(arch_name, cfg), FM_TRAIN_OPT),
                 init_train_state(params, FM_TRAIN_OPT), (batch,),
                 batch["graph"].n_nodes, train=True)
+
+
+# ------------------------------------------------------------ mesh cells --
+
+@dataclasses.dataclass
+class MeshCell:
+    """One (arch, shape) on one rank of a mesh: the JAX package's dry-run
+    ``Cell``.  ``step_fn(*args)`` takes this rank's blocks of the
+    arguments (each global argument of ``arg_shapes``, a tree of
+    ``ShapeDtype``, cut by the spec tree of ``in_specs``) and runs its
+    collectives on the mesh the cell was built for."""
+
+    arch: str
+    shape: str
+    step_fn: Callable
+    arg_shapes: tuple
+    in_specs: tuple
+    out_specs: Any
+    model_flops_per_step: float  # 6*N*D (dense) / 6*N_active*D (MoE)
+    donate: tuple = ()  # arguments whose blocks the step updates in place
+
+    def local_arg_shapes(self, mesh) -> tuple:
+        return tuple(sh.local_shapes(a, p, mesh)
+                     for a, p in zip(self.arg_shapes, self.in_specs))
+
+    def argument_bytes(self, mesh) -> int:
+        """The exact bytes of one rank's blocks of every argument."""
+        return sum(sh.bytes_per_rank(a, p, mesh)
+                   for a, p in zip(self.arg_shapes, self.in_specs))
+
+
+def _on_mesh(mesh, fn: Callable) -> Callable:
+    def step(*args):
+        with mesh_ops.use_mesh(mesh):
+            return fn(*args)
+    return step
+
+
+def _shapes(tree):
+    """A tree of tensors (meta or real) as ``ShapeDtype`` leaves."""
+    return sh.tree_map(lambda _k, t: ShapeDtype(tuple(t.shape), t.dtype), tree)
+
+
+def _train_state_shape(params_shape, opt_cfg: AdamWConfig) -> TrainState:
+    mdt = getattr(torch, opt_cfg.moment_dtype)
+    moments = sh.tree_map(lambda _k, s: ShapeDtype(s.shape, mdt), params_shape)
+    return TrainState(params=params_shape, opt=AdamWState(
+        step=ShapeDtype((), torch.int32), mu=moments,
+        nu=sh.tree_map(lambda _k, s: s, moments)))
+
+
+def _state_specs(p_specs) -> TrainState:
+    return TrainState(params=p_specs, opt=sh.opt_state_specs(p_specs))
+
+
+def lm_opt_cfg() -> AdamWConfig:
+    """The JAX package's LM cells' AdamW: bf16 moments."""
+    return AdamWConfig(lr_peak=3e-4, warmup_steps=200, total_steps=10_000,
+                       moment_dtype="bfloat16")
+
+
+def lm_mesh_config(cfg, kind: str, mesh):
+    """``cfg`` as the JAX package's LM cells set it on ``mesh``: ZeRO-3
+    storage everywhere; train cells sequence-parallel over the data axes;
+    MoE archs one dispatch group per data rank (and, serving, the data
+    axes as group axes)."""
+    dp = dp_axes(mesh)
+    dp_ways = int(np.prod([mesh.shape[mesh.mesh_dim_names.index(a)]
+                           for a in dp]))
+    groups = dp_ways if cfg.is_moe else 1
+    if kind == "train":
+        return dataclasses.replace(cfg, seq_parallel=dp, zero3_gather=True,
+                                   moe_groups=groups)
+    return dataclasses.replace(cfg, zero3_gather=True,
+                               seq_parallel=dp if cfg.is_moe else None,
+                               moe_groups=groups)
+
+
+def lm_param_shapes(cfg) -> dict:
+    from repro_torch.models.transformer import model as tmodel
+
+    return _shapes(tmodel.init_params(cfg, torch.Generator(), "meta",
+                                      requires_grad=False))
+
+
+def lm_cache_shape(cfg, batch: int, max_len: int,
+                   dtype=torch.bfloat16):
+    from repro_torch.models.transformer.model import KVCache, _period
+
+    per = _period(cfg)
+    n_per = cfg.n_layers // per
+    rem = cfg.n_layers - n_per * per
+    full = ShapeDtype((n_per, per, batch, max_len, cfg.n_kv_heads, cfg.d_head),
+                      dtype)
+    tail = ShapeDtype((rem, batch, max_len, cfg.n_kv_heads, cfg.d_head), dtype)
+    return KVCache(full, full, tail, tail, ShapeDtype((), torch.int32))
+
+
+def build_lm_cell(arch: Arch, shape_name: str, mesh) -> MeshCell:
+    from repro_torch.models.transformer import model as tmodel
+    from repro_torch.training.steps import lm_loss_fn
+
+    shape = LM_SHAPES[shape_name]
+    cfg = lm_mesh_config(arch.config, shape.kind, mesh)
+    b, s = shape.global_batch, shape.seq_len
+    params_shape = lm_param_shapes(cfg)
+    p_specs = sh.lm_param_specs(params_shape, mesh)
+    n_active = cfg.active_param_count()
+
+    if shape.kind == "train":
+        opt_cfg = lm_opt_cfg()
+        state_specs = _state_specs(p_specs)
+        batch_shape = {"tokens": ShapeDtype((b, s), torch.int32),
+                       "labels": ShapeDtype((b, s), torch.int32)}
+        step = make_mesh_train_step(lm_loss_fn(cfg), opt_cfg, p_specs, mesh)
+        return MeshCell(arch.name, shape_name, _on_mesh(mesh, step),
+                        (_train_state_shape(params_shape, opt_cfg), batch_shape),
+                        (state_specs, sh.lm_batch_specs(mesh)),
+                        (state_specs, None), 6.0 * n_active * b * s, donate=(0,))
+
+    cache_shape = lm_cache_shape(cfg, b, s)
+    c_specs = sh.lm_cache_specs(cache_shape, mesh, batch=b, kind=shape.kind)
+    dp = dp_axes(mesh) if b > 1 else ()
+    if shape.kind == "prefill":
+        def step(params, toks, cache):
+            return tmodel.prefill(cfg, params, toks, cache._replace(length=0))
+
+        return MeshCell(arch.name, shape_name, _on_mesh(mesh, step),
+                        (params_shape, ShapeDtype((b, s), torch.int32),
+                         cache_shape),
+                        (p_specs, P(dp, None), c_specs), (None, c_specs),
+                        2.0 * n_active * b * s, donate=(2,))
+
+    # decode: one new token against a full cache (the last position)
+    cache_axes = tuple(mesh.mesh_dim_names) if b == 1 else ("model",)
+
+    def step(params, toks, cache):
+        return tmodel.decode_step(cfg, params, toks,
+                                  cache._replace(length=s - 1),
+                                  cache_axes=cache_axes)
+
+    return MeshCell(arch.name, shape_name, _on_mesh(mesh, step),
+                    (params_shape, ShapeDtype((b, 1), torch.int32), cache_shape),
+                    (p_specs, P(dp, None), c_specs), (None, c_specs),
+                    2.0 * n_active * b, donate=(2,))
+
+
+def gnn_graph_shape(arch_name: str, shape_name: str):
+    """(GraphBatch of ``ShapeDtype``, padded nodes, padded edges): the JAX
+    package's ``_gnn_graph_shape``."""
+    from repro_torch.models.gnn.graph import GraphBatch
+
+    cfg = archs()[arch_name].config
+    shape = GNN_SHAPES[shape_name]
+    if shape.kind == "sampled":
+        n, e = sampled_subgraph_sizes(shape)
+        n_graphs = 1
+    elif shape.kind == "batched":
+        n, e = shape.n_nodes * shape.batch_graphs, shape.n_edges * shape.batch_graphs
+        n_graphs = shape.batch_graphs
+    else:
+        n, e, n_graphs = shape.n_nodes, shape.n_edges, 1
+    n, e = _pad512(n), _pad512(e)
+    f32, i32 = torch.float32, torch.int32
+    g = GraphBatch(
+        node_feat=ShapeDtype((n, gnn_d_in(arch_name, cfg, shape)), f32),
+        edge_src=ShapeDtype((e,), i32), edge_dst=ShapeDtype((e,), i32),
+        edge_feat=ShapeDtype((e, 8), f32), positions=ShapeDtype((n, 3), f32),
+        node_mask=ShapeDtype((n,), f32), edge_mask=ShapeDtype((e,), f32),
+        graph_id=ShapeDtype((n,), i32), n_graphs=n_graphs)
+    return g, n, e
+
+
+def build_gnn_mesh_cell(arch: Arch, shape_name: str, mesh) -> MeshCell:
+    """The JAX package's GNN cell on a mesh: nodes and edges over every
+    axis, params replicated.  Each rank passes its own edges' messages
+    and updates its own nodes (``models/gnn/graph.py``, "On a mesh"), and
+    takes its share of the loss; GraphCast's mesh nodes, a quarter of the
+    grid's, are whole on every rank."""
+    cfg = arch.config
+    g_shape, n, e = gnn_graph_shape(arch.name, shape_name)
+    d_in = g_shape.node_feat.shape[1]
+    params_shape = _shapes(init_gnn_params(arch.name, cfg, torch.Generator(),
+                                           d_in, "meta", requires_grad=False))
+    p_specs = sh.gnn_param_specs(params_shape)
+    state_specs = _state_specs(p_specs)
+    ax = tuple(mesh.mesh_dim_names)
+    batch_shape: dict[str, Any] = {"graph": g_shape}
+    batch_specs: dict[str, Any] = {
+        "graph": sh.gnn_graph_specs(mesh, n_graphs=g_shape.n_graphs)}
+    if arch.name == "gatedgcn":
+        batch_shape["labels"] = ShapeDtype((n,), torch.int32)
+        batch_specs["labels"] = P(ax)
+    elif arch.name == "graphcast":
+        batch_shape["target"] = ShapeDtype((n, cfg.n_vars), torch.float32)
+        batch_specs["target"] = P(ax, None)
+    else:
+        batch_shape["energy"] = ShapeDtype((g_shape.n_graphs,), torch.float32)
+        batch_specs["energy"] = P()
+    step = make_mesh_train_step(gnn_loss_fn(arch.name, cfg), FM_TRAIN_OPT,
+                                p_specs, mesh)
+    n_params = sum(int(np.prod(s.shape)) for _, s in sh.tree_items(params_shape))
+    return MeshCell(arch.name, shape_name, _on_mesh(mesh, step),
+                    (_train_state_shape(params_shape, FM_TRAIN_OPT), batch_shape),
+                    (state_specs, batch_specs), (state_specs, None),
+                    6.0 * n_params * n, donate=(0,))
+
+
+def build_fm_mesh_cell(arch: Arch, shape_name: str, mesh) -> MeshCell:
+    """The JAX package's FM cells on a mesh, table-parallel: ``emb`` and
+    ``lin`` rows over "model", the batch (or the candidates) over the data
+    axes; each model rank bags its rows (``fm.forward(mesh=)``).  A serve
+    cell keeps its rank's squared table across calls."""
+    cfg = arch.config
+    shape = RECSYS_SHAPES[shape_name]
+    rows, k = cfg.table_rows, cfg.embed_dim
+    f32 = torch.float32
+    params_shape = {"bias": ShapeDtype((), f32), "emb": ShapeDtype((rows, k), f32),
+                    "lin": ShapeDtype((rows, 1), f32)}
+    p_specs = sh.fm_param_specs(params_shape, mesh)
+    dp = dp_axes(mesh)
+    tables = fm_mod.TableRows()
+
+    if shape.kind == "train":
+        def loss_fn(params, batch):  # this rank's share of the mean BCE
+            loss = fm_mod.bce_loss(cfg, tables.of(params), batch["ids"],
+                                   batch["labels"], mesh)
+            return loss, {"bce": loss}
+
+        state_specs = _state_specs(p_specs)
+        batch_shape = {"ids": ShapeDtype((shape.batch, cfg.n_fields), torch.int32),
+                       "labels": ShapeDtype((shape.batch,), f32)}
+        step = make_mesh_train_step(loss_fn, FM_TRAIN_OPT, p_specs, mesh)
+        return MeshCell(arch.name, shape_name, _on_mesh(mesh, step),
+                        (_train_state_shape(params_shape, FM_TRAIN_OPT), batch_shape),
+                        (state_specs, sh.fm_batch_specs(mesh)), (state_specs, None),
+                        6.0 * shape.batch * cfg.n_fields * cfg.embed_dim,
+                        donate=(0,))
+
+    if shape.kind == "serve":
+        def step(params, ids):
+            return fm_mod.forward(cfg, tables.of(params), ids, mesh)
+
+        return MeshCell(arch.name, shape_name, _on_mesh(mesh, torch.no_grad()(step)),
+                        (params_shape,
+                         ShapeDtype((shape.batch, cfg.n_fields), torch.int32)),
+                        (p_specs, P(dp, None)), None,
+                        2.0 * shape.batch * cfg.n_fields * cfg.embed_dim)
+
+    # retrieval: 1 query x n_candidates, the candidates over the data axes
+    def step(params, q, cands):
+        return fm_mod.retrieval_scores(cfg, tables.of(params), q, cands, mesh)
+
+    return MeshCell(arch.name, shape_name, _on_mesh(mesh, torch.no_grad()(step)),
+                    (params_shape, ShapeDtype((cfg.n_fields,), torch.int32),
+                     ShapeDtype((shape.n_candidates, cfg.n_fields), torch.int32)),
+                    (p_specs, P(), P(dp, None)), None,
+                    2.0 * shape.n_candidates * cfg.n_fields * cfg.embed_dim)
+
+
+def build_cell(arch_name: str, shape_name: str, mesh) -> MeshCell:
+    """The mesh cell of (arch, shape) on ``mesh``: a ``DeviceMesh`` to run
+    its step, or any mesh with axis names and sizes to plan it."""
+    arch = archs()[arch_name]
+    if shape_name not in arch.shape_names:
+        raise ValueError(f"{arch_name} does not run shape {shape_name} "
+                         "(pure-global archs take no long_500k)")
+    if arch.family == "lm":
+        return build_lm_cell(arch, shape_name, mesh)
+    if arch.family == "gnn":
+        return build_gnn_mesh_cell(arch, shape_name, mesh)
+    return build_fm_mesh_cell(arch, shape_name, mesh)

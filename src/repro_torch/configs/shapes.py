@@ -1,12 +1,24 @@
-"""Input-shape sets, one per architecture family.
-
-The port's copy of the GNN and recsys parts of ``repro/configs/shapes.py``;
-the LM shapes come with the LM cells of the shardings slice (ROADMAP.md,
-§A, 16c).
-"""
+"""Input-shape sets, one per architecture family: the port's copy of
+``repro/configs/shapes.py``."""
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = {
+    "train_4k": LMShape("train_4k", "train", 4_096, 256),
+    "prefill_32k": LMShape("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": LMShape("decode_32k", "decode", 32_768, 128),
+    "long_500k": LMShape("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

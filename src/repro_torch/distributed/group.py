@@ -17,8 +17,9 @@ The backend is chosen once, in the parent, from the topology
 
 NCCL refuses two ranks on one device, so ranks that share the one card run
 gloo on their CUDA tensors.  gloo takes CUDA tensors for every collective
-this package calls (``all_reduce``, ``all_gather``, ``all_to_all_single``:
-the card's torch 2.11 build), copying them through host memory itself, so
+this package calls (``all_reduce``, ``all_gather``,
+``reduce_scatter_tensor``, ``all_to_all_single``: the card's torch 2.11
+build), copying them through host memory itself, so
 no tensor is moved off the card by the port.  ``collective_stats()``
 counts each collective's calls and the bytes it delivers to this rank, and
 the share of them that gloo carried through the host.
@@ -29,6 +30,7 @@ group's ``timeout``: a hung collective fails the run instead of stalling it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing
@@ -41,7 +43,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-COLLECTIVES = ("all_reduce", "all_gather", "all_to_all")
+COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
+               "permute")
 FAILURE_GRACE_S = 2.0
 COLLECTIVE_TIMEOUT_S = 120.0  # a collective (or the rendezvous) waits no longer
 
@@ -54,7 +57,7 @@ class RankFailure(RuntimeError):
 class Topology:
     """How the ranks of one run reach each other."""
 
-    backend: str  # "nccl" or "gloo"
+    backend: str  # "nccl", "gloo", or "fake" (planning, fake_ranks)
     device_type: str  # "cuda" or "cpu"
     world_size: int
 
@@ -153,20 +156,22 @@ def _count(name: str, out: torch.Tensor, t0: float) -> None:
         row["host_bytes"] += nbytes
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (or reduce it by ``op``); returns
+    ``t``."""
     t0 = time.perf_counter()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(t, op=op, group=group)
     _count("all_reduce", t, t0)
     return t
 
 
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """Every group member's ``t``, stacked in group-rank order."""
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    """Every group member's ``t``, stacked in group-rank order (received
+    straight into the stacked tensor's rows)."""
+    out = torch.empty((dist.get_world_size(group), *t.shape), dtype=t.dtype,
+                      device=t.device)
     t0 = time.perf_counter()
-    dist.all_gather(parts, t.contiguous(), group=group)
-    out = torch.stack(parts)
+    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
     _count("all_gather", out, t0)
     return out
 
@@ -182,6 +187,59 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_to_all_single(out, t.contiguous(), group=group)
     _count("all_to_all", out, t0)
     return out
+
+
+def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of the sum of every member's ``t`` (dim 0 split in
+    group-size equal blocks) goes to group rank ``j``: this rank's block."""
+    n = dist.get_world_size(group)
+    if t.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim 0 ({t.shape[0]}) is not a "
+                         f"multiple of the group size {n}")
+    out = torch.empty((t.shape[0] // n, *t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    t0 = time.perf_counter()
+    dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
+                               group=group)
+    _count("reduce_scatter", out, t0)
+    return out
+
+
+def permute(t: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
+    """A collective permute: ``t`` goes to group rank ``dst``, and the
+    result is what group rank ``src`` sent (every member sends a tensor of
+    one shape, and each receives exactly one)."""
+    n = dist.get_world_size(group)
+    send, recv = [0] * n, [0] * n
+    send[dst], recv[src] = t.shape[0], t.shape[0]
+    out = torch.empty_like(t, memory_format=torch.contiguous_format)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, t.contiguous(), recv, send, group=group)
+    _count("permute", out, t0)
+    return out
+
+
+@contextlib.contextmanager
+def fake_ranks(world_size: int):
+    """This process as rank 0 of ``world_size`` fake ranks: a process
+    group whose collectives move nothing (``torch.distributed``'s "fake"
+    backend), on the CPU, with a group state of its own, so the counted
+    collectives count what a real rank would send.  For planning under
+    ``FakeTensorMode``; nothing runs on a card."""
+    global _comm
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized() or _comm is not None:
+        raise RuntimeError("a process group is already running here")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    _comm = _Comm(Topology("fake", "cpu", world_size), torch.device("cpu"),
+                  _fresh_stats())
+    try:
+        yield _comm
+    finally:
+        _comm = None
+        dist.destroy_process_group()
 
 
 def _start_rank(rank: int, init_file: str, topology: Topology) -> None:

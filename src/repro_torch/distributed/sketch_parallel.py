@@ -205,11 +205,15 @@ def make_pp_ingest(
         rank = torch.empty_like(pos)
         rank[order] = pos - start
         keep = (rank < cap) & (own < n_model)
-        # slot == cap is the reference's dropped write: no slot at all here
-        buckets = torch.zeros((n_model, 3, cap), dtype=torch.int32,
+        # slot == cap is the reference's dropped write: a spare bucket row
+        # and slot take the dropped and parked edges and are cut off, so
+        # every shape is known before the data
+        buckets = torch.zeros((n_model + 1, 3, cap + 1), dtype=torch.int32,
                               device=device)
-        buckets[own[keep].long(), :, rank[keep]] = torch.stack(
-            [src_m, dst_m, wt_m], dim=1)[keep].to(torch.int32)
+        buckets[torch.where(keep, own, n_model).long(), :,
+                torch.where(keep, rank, cap)] = torch.stack(
+            [src_m, dst_m, wt_m], dim=1).to(torch.int32)
+        buckets = buckets[:n_model, :, :cap].contiguous()
         # exchange: rank m receives bucket m from every model peer, in
         # peer order
         recv = group.all_to_all(buckets, model_group)

@@ -25,9 +25,12 @@ agree bit for bit.  The
 autograd path: ``embedding_bag`` on a table that requires grad (grad mode
 on) returns a bag whose backward is that kernel, and
 ``sum_and_square_bags`` gives the FM's Σv and Σv² bags with one backward
-launch for the table's whole gradient.  The bag weights' gradient has no
-caller: a weighted bag refuses grad (ROADMAP.md, §B, "the weighted bag's
-backward").
+launch for the table's whole gradient.  A weighted bag is
+differentiable in its table through the same kernel: pair (b, f) becomes
+a bag of its own, whose output gradient is ``w[b, f]`` times bag b's
+(``_pair_grads``), so the kernel adds ``w g + 2 t (w g_sq)`` to row
+``idx[b, f]``.  The weights' gradient has no caller: weights that require
+grad are refused (ROADMAP.md, §B, "the weighted bag's backward").
 """
 from __future__ import annotations
 
@@ -70,15 +73,17 @@ def _check(table: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"B * D = {idx.shape[0]} * {table.shape[1]} must be "
                          "below 2^31")
     if (weights is not None and torch.is_grad_enabled()
-            and any(t.requires_grad for _, t in named)):
+            and weights.requires_grad):
         raise NotImplementedError(
-            "a weighted embedding_bag has no backward (ROADMAP.md, §B, "
-            "\"the weighted bag's backward\"); call it under "
-            "torch.no_grad() or on tensors that do not require grad")
+            "a weighted embedding_bag has no backward in its weights "
+            "(ROADMAP.md, §B, \"the weighted bag's backward\"); give "
+            "weights that do not require grad")
 
 
 def _check_range(v: int, idx: torch.Tensor) -> None:
-    if idx.numel() == 0:
+    from torch._subclasses.fake_tensor import is_fake
+
+    if idx.numel() == 0 or is_fake(idx):  # a planning trace holds no ids
         return
     lo, top = torch.stack([idx.min(), idx.max()]).tolist()  # one read-back
     if lo < 0 or top >= v:
@@ -182,20 +187,35 @@ def _tracks_grad(table: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and table.requires_grad
 
 
+def _pair_grads(grad: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """A weighted bag's output gradient [B, D] as the gradient of B * F
+    bags of one field each, pair (b, f)'s scaled by ``weights[b, f]``."""
+    b, f = weights.shape
+    return (weights[:, :, None] * grad[:, None, :]).reshape(b * f, -1)
+
+
+def _bag_grads(idx, weights, *grads):
+    """(idx, grads) for ``embedding_bag_backward``: as given for an
+    unweighted bag, one bag per pair for a weighted one."""
+    if weights is None:
+        return idx, [g.contiguous() for g in grads]
+    return idx.reshape(-1, 1), [_pair_grads(g, weights) for g in grads]
+
+
 class _Bag(torch.autograd.Function):
-    """An unweighted bag whose backward is ``embedding_bag_backward``."""
+    """A bag whose backward is ``embedding_bag_backward``."""
 
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
+    def forward(ctx, table, idx, weights):
+        ctx.save_for_backward(idx, weights)
         ctx.rows = table.shape[0]
-        return _bag(table, idx, None)
+        return _bag(table, idx, weights)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (idx,) = ctx.saved_tensors
-        return embedding_bag_backward(grad_out.contiguous(), idx,
-                                      ctx.rows), None
+        idx, weights = ctx.saved_tensors
+        idx, (grad_out,) = _bag_grads(idx, weights, grad_out)
+        return embedding_bag_backward(grad_out, idx, ctx.rows), None, None
 
 
 class _SumAndSquareBags(torch.autograd.Function):
@@ -204,19 +224,20 @@ class _SumAndSquareBags(torch.autograd.Function):
     through both."""
 
     @staticmethod
-    def forward(ctx, table, squared, idx):
-        ctx.save_for_backward(table, idx)
-        return _bag(table, idx, None), _bag(squared, idx, None)
+    def forward(ctx, table, squared, idx, weights):
+        ctx.save_for_backward(table, idx, weights)
+        return _bag(table, idx, weights), _bag(squared, idx, weights)
 
     @staticmethod
     def backward(ctx, grad_sum, grad_sq):
-        table, idx = ctx.saved_tensors
+        table, idx, weights = ctx.saved_tensors
         b, d = idx.shape[0], table.shape[1]
         zero = torch.zeros((b, d), dtype=torch.float32, device=table.device)
-        grad_sum = zero if grad_sum is None else grad_sum.contiguous()
-        grad_sq = zero if grad_sq is None else grad_sq.contiguous()
+        idx, (grad_sum, grad_sq) = _bag_grads(
+            idx, weights, zero if grad_sum is None else grad_sum,
+            zero if grad_sq is None else grad_sq)
         return embedding_bag_backward(grad_sum, idx, table.shape[0], table,
-                                      grad_sq), None, None
+                                      grad_sq), None, None, None
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
@@ -227,14 +248,14 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor,
     Precondition: idx lies in ``[0, V)``, as the FM's ``_flat_ids`` gives
     it.  On the CPU the range is checked and a breach raises
     ``ValueError``; on the card only shapes and types are checked, since a
-    range check there would wait for the device.  An unweighted bag of a
-    table that requires grad (grad mode on) is differentiable in the
-    table: its backward is ``embedding_bag_backward``.  A weighted bag
-    refuses grad.
+    range check there would wait for the device.  A bag of a table that
+    requires grad (grad mode on) is differentiable in the table: its
+    backward is ``embedding_bag_backward``.  Weights that require grad
+    are refused.
     """
     _check(table, idx, weights)
-    if weights is None and _tracks_grad(table):
-        return _Bag.apply(table, idx)
+    if _tracks_grad(table):
+        return _Bag.apply(table, idx, weights)
     return _bag(table, idx, weights)
 
 
@@ -242,20 +263,21 @@ embedding_bag.launches = 0
 
 
 def sum_and_square_bags(table: torch.Tensor, squared: torch.Tensor,
-                        idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(Σ table rows, Σ squared rows) per bag, two ``embedding_bag``
+                        idx: torch.Tensor, weights: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ w table rows, Σ w squared rows) per bag, two ``embedding_bag``
     launches; ``squared`` must hold ``table * table`` (the FM keeps it as
     a buffer).  When ``table`` requires grad (grad mode on), the pair's
     backward is one ``embedding_bag_backward`` launch with the squared
     term, ``squared`` taking no gradient."""
-    _check(table, idx, None)
-    _check(squared, idx, None)
+    _check(table, idx, weights)
+    _check(squared, idx, weights)
     if squared.shape != table.shape:
         raise ValueError(f"squared must be {tuple(table.shape)}, got "
                          f"{tuple(squared.shape)}")
     if _tracks_grad(table):
-        return _SumAndSquareBags.apply(table, squared, idx)
-    return _bag(table, idx, None), _bag(squared, idx, None)
+        return _SumAndSquareBags.apply(table, squared, idx, weights)
+    return _bag(table, idx, weights), _bag(squared, idx, weights)
 
 
 # ---------------------------------------------------------------- backward --

@@ -49,7 +49,9 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        if torch.is_grad_enabled():  # differentiable backward: stay dense
+        # dense when autograd records the backward itself, and on "meta"
+        # (a planning trace), where sparse sums have no kernel
+        if torch.is_grad_enabled() or g.is_meta:
             return g.new_zeros(ctx.shape).index_add(0, idx, g), None
         return torch.sparse_coo_tensor(idx.long()[None], g, ctx.shape,
                                        check_invariants=False), None

@@ -34,7 +34,8 @@ from repro_torch.models.common import dense_init, normal_init, unstack_layers
 from repro_torch.models.gnn.chunked import (chunked_edge_aggregate, gather_rows,
                                             pad_rows)
 from repro_torch.models.gnn.graph import (GraphBatch, edge_softmax, gather,
-                                          scatter_sum)
+                                          graph_nodes, own_block, scatter_sum,
+                                          summed, whole)
 from repro_torch.models.gnn.so3 import m_array, n_comps, rotate_to_edge_frame
 from repro_torch.training.optimizer import tree_leaves
 
@@ -160,9 +161,11 @@ def _logits_chunk(cfg, p, so2_p, h, s, t, v):
 
 
 def _attention_layer(cfg, p, h, g: GraphBatch, inv_sqrt_deg):
-    n_edges = g.n_edges
+    n_edges, n_all = g.n_edges, graph_nodes(g)
     d = cfg.d_hidden
-    vec = gather(g.positions, g.edge_src) - gather(g.positions, g.edge_dst)
+    pos = whole(g.positions)
+    vec = gather(pos, g.edge_src) - gather(pos, g.edge_dst)
+    h_all = whole(h)
 
     n_chunks = max(n_edges // cfg.edge_chunk, 1)
     chunk = -(-n_edges // n_chunks)
@@ -177,11 +180,12 @@ def _attention_layer(cfg, p, h, g: GraphBatch, inv_sqrt_deg):
     # each chunk checkpointed: its rotate/mix recomputes in backward, so no
     # chunk's residuals are held
     logits = torch.cat([
-        checkpoint(_logits_chunk, cfg, p, so2_p, h, src[i * chunk:(i + 1) * chunk],
+        checkpoint(_logits_chunk, cfg, p, so2_p, h_all,
+                   src[i * chunk:(i + 1) * chunk],
                    dst[i * chunk:(i + 1) * chunk],
                    vec_p[i * chunk:(i + 1) * chunk], use_reentrant=False)
         for i in range(n_chunks)])[:n_edges]
-    alpha = edge_softmax(logits, g.edge_dst, g.n_nodes, g.edge_mask)  # (E, H)
+    alpha = edge_softmax(logits, g.edge_dst, n_all, g.edge_mask)  # (E, H)
     alpha_p = pad_rows(alpha, pad)
 
     # ---- pass 2: weighted messages via the linear-aggregate Function ------
@@ -196,13 +200,13 @@ def _attention_layer(cfg, p, h, g: GraphBatch, inv_sqrt_deg):
                                    l_max=cfg.l_max, inverse=True)
         return val.transpose(1, 2)
 
-    agg = chunked_edge_aggregate(
-        msg_fn, g.n_nodes, n_chunks,
-        (h, so2_p),
+    agg = own_block(chunked_edge_aggregate(
+        msg_fn, n_all, n_chunks,
+        (h_all, so2_p),
         {"vec": vec_p, "alpha": alpha_p},
         {"src": src, "dst": dst},
         dst,
-    )
+    ))
     agg = agg * inv_sqrt_deg[:, None, None]
 
     h = h + agg @ p["out_w"]
@@ -221,7 +225,7 @@ def _attention_layer(cfg, p, h, g: GraphBatch, inv_sqrt_deg):
 
 def forward(cfg: EquiformerV2Config, params: dict, g: GraphBatch) -> torch.Tensor:
     """Per-graph energies (n_graphs,) — the OC20-style readout."""
-    deg = scatter_sum(g.edge_mask, g.edge_dst, g.n_nodes)
+    deg = own_block(scatter_sum(g.edge_mask, g.edge_dst, graph_nodes(g)))
     inv_sqrt_deg = torch.rsqrt(torch.clamp_min(deg, 1.0))
     h0 = g.node_feat @ params["embed"]
     h = torch.cat([h0[:, None, :], h0.new_zeros(
@@ -233,4 +237,4 @@ def forward(cfg: EquiformerV2Config, params: dict, g: GraphBatch) -> torch.Tenso
              if cfg.remat else _attention_layer(*args))
     e_atom = F.silu(h[:, 0, :] @ params["head_w1"]) @ params["head_w2"]
     e_atom = e_atom[:, 0] * g.node_mask
-    return scatter_sum(e_atom, g.graph_id, g.n_graphs)
+    return summed(scatter_sum(e_atom, g.graph_id, g.n_graphs))

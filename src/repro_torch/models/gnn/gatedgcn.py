@@ -22,7 +22,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import (dense_init, layer_norm, normal_init,
                                        unstack_layers)
-from repro_torch.models.gnn.graph import GraphBatch, gather, scatter_sum
+from repro_torch.models.gnn.graph import (GraphBatch, gather, graph_nodes,
+                                          own_block, scatter_sum, whole)
 from repro_torch.training.optimizer import tree_leaves
 
 
@@ -63,12 +64,13 @@ def init_params(cfg: GatedGCNConfig, generator: torch.Generator, d_in: int,
 
 
 def _layer(cfg: GatedGCNConfig, p: dict, h, e, g: GraphBatch):
-    hi = gather(h, g.edge_src)
-    hj = gather(h, g.edge_dst)
+    h_all, n = whole(h), graph_nodes(g)
+    hi = gather(h_all, g.edge_src)
+    hj = gather(h_all, g.edge_dst)
     e_new = e @ p["E1"] + hi @ p["E2"] + hj @ p["E3"]
     gate = torch.sigmoid(e_new) * g.edge_mask[:, None]
-    denom = scatter_sum(gate, g.edge_dst, g.n_nodes) + 1e-6
-    msg = scatter_sum(gate * (hi @ p["B"]), g.edge_dst, g.n_nodes)
+    denom = own_block(scatter_sum(gate, g.edge_dst, n)) + 1e-6
+    msg = own_block(scatter_sum(gate * (hi @ p["B"]), g.edge_dst, n))
     h_new = h @ p["A"] + msg / denom
     h = h + F.relu(layer_norm(h_new, p["ln_h_g"], p["ln_h_b"]))
     e = e + F.relu(layer_norm(e_new, p["ln_e_g"], p["ln_e_b"]))

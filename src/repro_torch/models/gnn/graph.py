@@ -12,6 +12,18 @@ Graphs are padded to static shapes: ``edge_mask`` / ``node_mask`` mark real
 entries (padding edges point at node 0 with mask 0, and the segment ops
 weight them out).  Index fields stay int32, the JAX package's dtype, and
 are widened only where a torch op needs int64.
+
+On a mesh.  Under an installed mesh (``mesh_ops.use_mesh``) a graph is
+split over every axis of it, as the JAX package's specs split it: each
+rank holds its block of every node array (rows ``r * N`` on, ``N`` =
+``g.n_nodes`` its rows, ``r`` its index over every axis) and of every
+edge array, and the edges name nodes by their index in the whole graph.
+Each rank passes its own edges' messages: ``whole`` gathers a node array
+from every rank's block (its adjoint a reduce-scatter), the messages are
+summed into a whole-graph buffer of ``graph_nodes(g)`` rows, and
+``own_block`` sums those buffers over the ranks into this rank's rows.
+Per-graph sums are summed over the ranks (``summed``).  Off a mesh each
+of these is the identity.
 """
 from __future__ import annotations
 
@@ -21,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.struct import static_field, tensor_dataclass
+from repro_torch.distributed import mesh_ops
 
 
 @tensor_dataclass
@@ -81,6 +94,61 @@ def scatter_max(edge_vals: torch.Tensor, dst: torch.Tensor,
                               include_self=True)
 
 
+def _every():
+    """(the installed mesh, its axes), or (None, ())."""
+    mesh = mesh_ops.current_mesh()
+    return (mesh, tuple(mesh.mesh_dim_names)) if mesh is not None else (None, ())
+
+
+def ranks() -> int:
+    """How many ranks split the graph: 1 off a mesh."""
+    mesh, every = _every()
+    return mesh_ops.axis_size(mesh, every) if mesh is not None else 1
+
+
+def graph_nodes(g: GraphBatch) -> int:
+    """The whole graph's node count (the range of the edges' indices)."""
+    return g.n_nodes * ranks()
+
+
+def first_node(g: GraphBatch) -> int:
+    """The whole-graph index of this rank's first node."""
+    mesh, every = _every()
+    return g.n_nodes * mesh_ops.axis_index(mesh, every) if mesh is not None else 0
+
+
+def whole(node_vals: torch.Tensor) -> torch.Tensor:
+    """A node array of the whole graph from every rank's block."""
+    mesh, every = _every()
+    return node_vals if mesh is None else mesh_ops.gather(node_vals, every, 0,
+                                                          mesh)
+
+
+def own_block(full: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of the sum over the ranks of a whole-graph node
+    array (each rank's messages into every node)."""
+    mesh, every = _every()
+    return full if mesh is None else mesh_ops.psum_scatter(full, every, 0, mesh)
+
+
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks: a per-graph sum, or any array every
+    rank holds whole."""
+    mesh, every = _every()
+    return x if mesh is None else mesh_ops.psum(x, every, mesh)
+
+
+def node_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a node array over the whole graph; on a mesh this
+    rank's share of it (the ranks' shares sum to the mean)."""
+    return torch.mean(x) if ranks() == 1 else x.sum() / (x.numel() * ranks())
+
+
+def share(x: torch.Tensor) -> torch.Tensor:
+    """A loss every rank computes whole, as this rank's share of it."""
+    return x if ranks() == 1 else x / ranks()
+
+
 def gather(node_vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``node_vals[idx]`` by ``index_select``: its backward adds the rows
     with ``index_add`` (atomics on the card), where advanced indexing's
@@ -90,16 +158,22 @@ def gather(node_vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def edge_softmax(scores: torch.Tensor, dst: torch.Tensor, n_nodes: int,
                  edge_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Softmax over incoming edges per destination node. scores: [E, H]."""
+    """Softmax over incoming edges per destination node. scores: [E, H];
+    ``n_nodes`` the range of ``dst``.  On a mesh a node's edges lie on
+    every rank: the maxima (a stabiliser, which the softmax's value does
+    not depend on) and the sums are taken over the ranks."""
     if edge_mask is not None:
         scores = torch.where(edge_mask[:, None] > 0, scores,
                              scores.new_tensor(-1e30))
     mx = scatter_max(scores, dst, n_nodes)
+    mesh, every = _every()
+    if mesh is not None:
+        mx = mesh_ops.pmax(mx, every, mesh)
     mx = torch.where(torch.isfinite(mx), mx, mx.new_zeros(()))
     ex = torch.exp(scores - gather(mx, dst))
     if edge_mask is not None:
         ex = ex * edge_mask[:, None]
-    den = scatter_sum(ex, dst, n_nodes)
+    den = summed(scatter_sum(ex, dst, n_nodes))
     return ex / torch.clamp_min(gather(den, dst), 1e-9)
 
 

@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import layer_norm, normal_init, unstack_layers
-from repro_torch.models.gnn.graph import GraphBatch, gather, scatter_sum
+from repro_torch.models.gnn.graph import (GraphBatch, first_node, gather,
+                                          graph_nodes, scatter_sum, summed)
 from repro_torch.training.optimizer import tree_leaves
 
 
@@ -70,12 +71,18 @@ def _interaction_init(generator, d, device, lead=()):
     }
 
 
-def _interaction(p, h_src_nodes, h_dst_nodes, e, src, dst, n_dst, edge_mask):
+def _interaction(p, h_src_nodes, h_dst_nodes, e, src, dst, n_dst, edge_mask,
+                 reduce=None):
+    """``reduce``: how the destinations' sums meet over the ranks (``summed``
+    for the mesh nodes, which every rank holds whole; None where each rank
+    holds its own destinations)."""
     m = edge_mask[:, None].to(e.dtype)  # keep the latent dtype
     ein = torch.cat([e, gather(h_src_nodes, src), gather(h_dst_nodes, dst)],
                     dim=-1)
     e_new = e + _mlp(p["edge"], ein) * m
     agg = scatter_sum(e_new * m, dst, n_dst)
+    if reduce is not None:
+        agg = reduce(agg)
     h_new = h_dst_nodes + _mlp(p["node"], torch.cat([h_dst_nodes, agg], -1))
     return h_new, e_new
 
@@ -99,10 +106,12 @@ def init_params(cfg: GraphCastConfig, generator: torch.Generator,
 
 
 def _mesh_topology(cfg: GraphCastConfig, g: GraphBatch):
-    """Deterministic mesh derivation from a generic graph (see module doc)."""
-    n_mesh = max(g.n_nodes // cfg.mesh_ratio, 1)
-    anchor = (torch.arange(g.n_nodes, dtype=torch.int32,
-                           device=g.edge_src.device)
+    """Deterministic mesh derivation from a generic graph (see module doc).
+    On a mesh of ranks the grid is split and the mesh nodes are whole on
+    every rank: ``anchor`` is this rank's grid nodes'."""
+    n_mesh = max(graph_nodes(g) // cfg.mesh_ratio, 1)
+    anchor = ((first_node(g) + torch.arange(g.n_nodes, dtype=torch.int32,
+                                            device=g.edge_src.device))
               // cfg.mesh_ratio) % n_mesh
     mesh_src = (g.edge_src // cfg.mesh_ratio) % n_mesh
     mesh_dst = (g.edge_dst // cfg.mesh_ratio) % n_mesh
@@ -118,22 +127,23 @@ def forward(cfg: GraphCastConfig, params: dict, g: GraphBatch) -> torch.Tensor:
 
     h_grid = _mlp(params["embed_grid"], g.node_feat.to(lat))
     # mesh initial state: mean of anchored grid nodes (cheap pre-encoder)
-    cnt = torch.clamp_min(scatter_sum(g.node_mask, anchor, n_mesh), 1.0)
-    mesh_feat = (scatter_sum(g.node_feat * g.node_mask[:, None], anchor, n_mesh)
-                 / cnt[:, None])
+    cnt = torch.clamp_min(summed(scatter_sum(g.node_mask, anchor, n_mesh)),
+                          1.0)
+    mesh_feat = (summed(scatter_sum(g.node_feat * g.node_mask[:, None], anchor,
+                                    n_mesh)) / cnt[:, None])
     h_mesh = _mlp(params["embed_mesh"], mesh_feat.to(lat))
 
     # grid2mesh: one edge per grid node to its anchor.
     grid_ids = torch.arange(g.n_nodes, dtype=torch.int32, device=dev)
     g2m_e = torch.zeros((g.n_nodes, d), dtype=lat, device=dev)
     h_mesh, _ = _interaction(params["g2m"], h_grid, h_mesh, g2m_e, grid_ids,
-                             anchor, n_mesh, g.node_mask)
+                             anchor, n_mesh, g.node_mask, summed)
 
     # processor on the contracted mesh graph
     e_mesh = torch.zeros((g.n_edges, d), dtype=lat, device=dev)
     for lp in _unstack_processor(params["processor"], cfg.n_layers):
         args = (lp, h_mesh, h_mesh, e_mesh, mesh_src, mesh_dst, n_mesh,
-                g.edge_mask)
+                g.edge_mask, summed)
         h_mesh, e_mesh = (checkpoint(_interaction, *args, use_reentrant=False)
                           if cfg.remat else _interaction(*args))
 

@@ -32,7 +32,8 @@ from repro_torch.models.common import dense_init, normal_init, unstack_layers
 from repro_torch.models.gnn.chunked import (aggregate_unchunked,
                                             chunked_edge_aggregate,
                                             gather_rows, pad_rows)
-from repro_torch.models.gnn.graph import GraphBatch, gather, scatter_sum
+from repro_torch.models.gnn.graph import (GraphBatch, gather, graph_nodes,
+                                          own_block, scatter_sum, summed, whole)
 from repro_torch.models.gnn.so3 import gaunt_tensor, n_comps, real_sph_harm
 from repro_torch.training.optimizer import tree_leaves
 
@@ -159,13 +160,14 @@ def _interaction(cfg: NequIPConfig, p: dict, h, g: GraphBatch, y_edge, rbf,
     dst = pad_rows(g.edge_dst, pad)
     edges = {"y": pad_rows(y_edge, pad), "rbf": pad_rows(rbf, pad),
              "mask": pad_rows(g.edge_mask, pad)}
-    carry = (h, p["rad_w1"], p["rad_w2"])
+    carry = (whole(h), p["rad_w1"], p["rad_w2"])
     if chunked:
-        agg = chunked_edge_aggregate(_message_fn(cfg), g.n_nodes, n_chunks,
+        agg = chunked_edge_aggregate(_message_fn(cfg), graph_nodes(g), n_chunks,
                                      carry, edges, {"src": src}, dst)
     else:
-        agg = aggregate_unchunked(_message_fn(cfg), g.n_nodes, carry, edges,
-                                  {"src": src}, dst)
+        agg = aggregate_unchunked(_message_fn(cfg), graph_nodes(g), carry,
+                                  edges, {"src": src}, dst)
+    agg = own_block(agg)
 
     # self-interaction + message mix per l, then gated nonlinearity
     mixed = [h[:, _sl(l), :] @ p["self_w"][l] + agg[:, _sl(l), :] @ p["msg_w"][l]
@@ -181,9 +183,9 @@ def _interaction(cfg: NequIPConfig, p: dict, h, g: GraphBatch, y_edge, rbf,
 def energy(cfg: NequIPConfig, params: dict, g: GraphBatch,
            positions: torch.Tensor, *, chunked: bool = True) -> torch.Tensor:
     """Total energy per graph: (n_graphs,). Differentiable in positions."""
+    pos = whole(positions)
     return energy_from_edges(cfg, params, g,
-                             gather(positions, g.edge_src)
-                             - gather(positions, g.edge_dst),
+                             gather(pos, g.edge_src) - gather(pos, g.edge_dst),
                              chunked=chunked)
 
 
@@ -209,7 +211,7 @@ def energy_from_edges(cfg: NequIPConfig, params: dict, g: GraphBatch,
 
     e_atom = F.silu(h[:, 0, :] @ params["head_w1"]) @ params["head_w2"]
     e_atom = e_atom[:, 0] * g.node_mask
-    return scatter_sum(e_atom, g.graph_id, g.n_graphs)
+    return summed(scatter_sum(e_atom, g.graph_id, g.n_graphs))
 
 
 def energy_and_forces(cfg: NequIPConfig, params: dict, g: GraphBatch):

@@ -36,6 +36,12 @@ the next forward derives the squared table again.
 Vocab: per-field sizes follow a Criteo-like power law (few huge id fields,
 many small categoricals), hashed into a single fused table with per-field
 offsets: one bag for all fields.
+
+Table-parallel.  On a mesh (``mesh=``) the tables' rows are split over
+"model" (``TableRows``: this rank's rows): each model rank shifts the
+fused rows into its range, weights the others 0, runs the same three
+bags on its rows, and the bags are summed over "model".  The weighted
+bags train through the same backward kernel.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.distributed import mesh_ops
 from repro_torch.kernels.embedding_bag import embedding_bag, sum_and_square_bags
 from repro_torch.models.common import normal_init
 
@@ -113,6 +120,26 @@ class FM(nn.Module):
         return forward(self.cfg, self, ids)
 
 
+class TableRows:
+    """This model rank's rows of the FM's tables on a mesh, read by
+    ``_score`` as it reads an ``FM``: ``of(params)`` takes the rank's
+    ``emb`` and ``lin`` rows and ``bias`` from a params dict (the
+    tensors themselves, so a gradient reaches them), and the squared
+    table is derived as ``FM`` derives it, again only when ``emb`` has
+    changed.  Hold one across calls to keep the squared table."""
+
+    def __init__(self):
+        self.emb = self.lin = self.bias = None
+        self.emb_sq, self._emb_sq_of = None, None
+
+    def of(self, params: dict) -> "TableRows":
+        self.emb, self.lin, self.bias = (params["emb"], params["lin"],
+                                         params["bias"])
+        return self
+
+    squared_table = FM.squared_table
+
+
 def init_params(cfg: FMConfig, generator: torch.Generator, device="cuda",
                 *, requires_grad: bool = False) -> FM:
     """Random FM parameters on ``device`` (``generator`` lives there too)."""
@@ -126,9 +153,14 @@ def init_params(cfg: FMConfig, generator: torch.Generator, device="cuda",
 
 @functools.cache
 def _field_tables(cfg: FMConfig, device: torch.device):
-    offs = torch.as_tensor(cfg.field_offsets(), dtype=torch.int32, device=device)
-    sizes = torch.as_tensor(cfg.field_vocabs(), dtype=torch.int32, device=device)
-    return offs[None, :], sizes[None, :]
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():  # cached: real even inside a planning trace
+        offs = torch.as_tensor(cfg.field_offsets(), dtype=torch.int32,
+                               device=device)
+        sizes = torch.as_tensor(cfg.field_vocabs(), dtype=torch.int32,
+                                device=device)
+        return offs[None, :], sizes[None, :]
 
 
 def _flat_ids(cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
@@ -138,32 +170,59 @@ def _flat_ids(cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
     return offs + torch.remainder(ids, sizes)
 
 
-def _score(cfg: FMConfig, params: FM, ids: torch.Tensor):
-    """(logits [B], Σv [B, k]) of int32[B, F] ids: three bags."""
-    rows = _flat_ids(cfg, ids)
+def table_parallel_rows(cfg: FMConfig, ids: torch.Tensor, n_rows: int,
+                        mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows int32[B, F], weights f32[B, F]) of this model rank's bags: the
+    fused rows of ``ids`` shifted into the rank's ``n_rows`` rows, weight
+    1; the rows other ranks hold at row 0, weight 0."""
+    rows = _flat_ids(cfg, ids) - mesh_ops.axis_index(mesh, "model") * n_rows
+    mine = (rows >= 0) & (rows < n_rows)
+    return (torch.where(mine, rows, 0).to(torch.int32),
+            mine.to(torch.float32))
+
+
+def _score(cfg: FMConfig, params, ids: torch.Tensor, mesh=None):
+    """(logits [B], Σv [B, k]) of int32[B, F] ids: three bags.  With
+    ``mesh``: ``params`` holds this model rank's rows (``TableRows``), the
+    ids outside them weighted 0, the bags summed over "model"."""
+    if mesh is None:
+        rows, weights = _flat_ids(cfg, ids), None
+    else:
+        rows, weights = table_parallel_rows(cfg, ids, params.emb.shape[0], mesh)
     sum_v, sum_sq = sum_and_square_bags(params.emb, params.squared_table(),
-                                        rows)
-    lin = embedding_bag(params.lin, rows)[:, 0]
+                                        rows, weights)
+    lin = embedding_bag(params.lin, rows, weights)
+    if mesh is not None:
+        k = sum_v.shape[1]
+        bags = mesh_ops.psum(torch.cat([sum_v, sum_sq, lin], dim=-1), "model",
+                             mesh)
+        sum_v, sum_sq, lin = bags[:, :k], bags[:, k:2 * k], bags[:, 2 * k:]
     pairwise = 0.5 * (sum_v * sum_v - sum_sq).sum(dim=-1)
-    return params.bias + lin + pairwise, sum_v
+    return params.bias + lin[:, 0] + pairwise, sum_v
 
 
-def forward(cfg: FMConfig, params: FM, ids: torch.Tensor) -> torch.Tensor:
-    """Logits [B] for a batch of multi-field categorical rows int32[B, F]."""
-    return _score(cfg, params, ids)[0]
+def forward(cfg: FMConfig, params, ids: torch.Tensor, mesh=None
+            ) -> torch.Tensor:
+    """Logits [B] for a batch of multi-field categorical rows int32[B, F]
+    (``mesh``: table-parallel, ``params`` a ``TableRows``)."""
+    return _score(cfg, params, ids, mesh)[0]
 
 
-def bce_loss(cfg: FMConfig, params: FM, ids: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
-    logits = forward(cfg, params, ids)
-    return torch.mean(
-        torch.clamp(logits, min=0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
-    )
+def bce_loss(cfg: FMConfig, params, ids: torch.Tensor, labels: torch.Tensor,
+             mesh=None) -> torch.Tensor:
+    """The batch's mean BCE; with ``mesh``, this rank's share of the whole
+    batch's (the ranks' shares sum to it)."""
+    logits = forward(cfg, params, ids, mesh)
+    per = (torch.clamp(logits, min=0) - logits * labels
+           + torch.log1p(torch.exp(-torch.abs(logits))))
+    if mesh is None:
+        return torch.mean(per)
+    return per.sum() / (per.numel()
+                        * mesh_ops.axis_size(mesh, mesh.mesh_dim_names))
 
 
-def retrieval_scores(cfg: FMConfig, params: FM, query_ids: torch.Tensor,
-                     cand_ids: torch.Tensor) -> torch.Tensor:
+def retrieval_scores(cfg: FMConfig, params, query_ids: torch.Tensor,
+                     cand_ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Score ONE query against N candidate items without a Python loop.
 
     query_ids: int32[Fq] user-side fields; cand_ids: int32[N, Fc] item-side
@@ -172,7 +231,7 @@ def retrieval_scores(cfg: FMConfig, params: FM, query_ids: torch.Tensor,
     Σv, which the bags of fm(c) already computed (the JAX package gathers
     them a second time; the numbers are the same).
     """
-    q, vq = _score(cfg, params, query_ids[None, :])  # (1,), (1, k)
-    c, vc = _score(cfg, params, cand_ids)  # (N,), (N, k)
+    q, vq = _score(cfg, params, query_ids[None, :], mesh)  # (1,), (1, k)
+    c, vc = _score(cfg, params, cand_ids, mesh)  # (N,), (N, k)
     cross = torch.matmul(vc, vq[0])  # (N,)
     return q + c + cross

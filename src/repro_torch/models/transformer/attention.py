@@ -81,27 +81,33 @@ def _pad_seq(x, before: int, after: int):
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: int | None, attn_cap: float | None,
-                        chunk_q: int, chunk_kv: int) -> torch.Tensor:
-    """Causal attention of q (B, S, H, Dh) over k, v (B, S, KV, Dh) ->
-    (B, S, H, Dh); ``window`` None is global."""
-    b, s, h, dh = q.shape
+                        chunk_q: int, chunk_kv: int,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Causal attention of q (B, Sq, H, Dh) over k, v (B, S, KV, Dh) ->
+    (B, Sq, H, Dh); ``window`` None is global.  The queries sit at
+    positions ``q_offset`` .. ``q_offset + Sq - 1`` of the keys' sequence
+    (a rank's block of a sequence-parallel stream; 0 and Sq == S
+    otherwise)."""
+    b, sq, h, dh = q.shape
+    s = k.shape[1]
     kv = k.shape[2]
     g = h // kv
     scale = 1.0 / math.sqrt(dh)
-    chunk_q = min(chunk_q, s)
-    nq = -(-s // chunk_q)
+    chunk_q = min(chunk_q, sq)
+    nq = -(-sq // chunk_q)
     sq_pad = nq * chunk_q
-    qp = _pad_seq(q, 0, sq_pad - s).reshape(b, nq, chunk_q, kv, g, dh)
+    qp = _pad_seq(q, 0, sq_pad - sq).reshape(b, nq, chunk_q, kv, g, dh)
     dev = q.device
 
     if window is not None and window > 0:
         # ---- sliding window: one KV slab per query chunk ------------------
         slab = window + chunk_q
-        kpad = _pad_seq(k, slab, sq_pad - s)
-        vpad = _pad_seq(v, slab, sq_pad - s)
+        after = max(0, q_offset + sq_pad - s)
+        kpad = _pad_seq(k, slab, after)
+        vpad = _pad_seq(v, slab, after)
         outs = []
         for i in range(nq):
-            start = i * chunk_q
+            start = q_offset + i * chunk_q
             # the slab holds positions [start - window, start + Tq - 1];
             # position x lives at index x + slab of the padded arrays
             k_i = kpad[:, start + chunk_q:start + chunk_q + slab]
@@ -115,7 +121,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.softmax(s_i, dim=-1)
             outs.append(torch.einsum("bkgqt,btkd->bqkgd", p.to(v.dtype), v_i))
         out = torch.stack(outs, dim=1).reshape(b, sq_pad, h, dh)
-        return out[:, :s]
+        return out[:, :sq]
 
     # ---- global causal: online softmax over KV chunks --------------------
     chunk_kv = min(chunk_kv, s)
@@ -126,14 +132,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for i in range(nq):
         q_i = qp[:, i]
-        q_pos = i * chunk_q + torch.arange(chunk_q, device=dev)
+        q0 = q_offset + i * chunk_q
+        q_pos = q0 + torch.arange(chunk_q, device=dev)
         m = torch.full((b, kv, g, chunk_q), NEG_INF, dtype=torch.float32,
                        device=dev)
         l = torch.zeros((b, kv, g, chunk_q), dtype=torch.float32, device=dev)
         acc = torch.zeros((b, kv, g, chunk_q, dh), dtype=torch.float32,
                           device=dev)
         for j in range(nk):
-            if j * chunk_kv > i * chunk_q + chunk_q - 1:
+            if j * chunk_kv > q0 + chunk_q - 1:
                 continue  # wholly in the causal future
             k_j = kp[:, j * chunk_kv:(j + 1) * chunk_kv]
             v_j = vp[:, j * chunk_kv:(j + 1) * chunk_kv]
@@ -151,7 +158,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))  # (B, Tq, KV, G, Dh)
     out = torch.stack(outs, dim=1).reshape(b, sq_pad, kv * g, dh).to(q.dtype)
-    return out[:, :s]
+    return out[:, :sq]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -173,6 +180,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(ok, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, dh)
+
+
+def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, cache_len: int, *,
+                             window: int | None, attn_cap: float | None,
+                             offset: int, axes, mesh) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence is cut over the
+    mesh ``axes``: this rank holds positions ``offset`` .. ``offset +
+    S_local - 1``.  A distributed softmax: the ranks' maxima, sums and
+    weighted values are combined over ``axes`` (float32 throughout)."""
+    from repro_torch.distributed import mesh_ops
+
+    b, s, kvh, dh = k_cache.shape
+    h = q.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dh)
+    qr = q.reshape(b, 1, kvh, g, dh)
+    scores = _scores(qr, k_cache, scale, attn_cap)[..., 0, :]  # (B, KV, G, S)
+    pos = offset + torch.arange(s, device=q.device)
+    ok = pos < cache_len
+    if window is not None and window > 0:
+        ok &= pos > cache_len - 1 - window
+    scores = torch.where(ok, scores, NEG_INF)
+    m = mesh_ops.pmax(scores.amax(dim=-1), axes, mesh)
+    p = torch.exp(scores - m[..., None])
+    l = mesh_ops.psum(p.sum(dim=-1), axes, mesh)
+    acc = mesh_ops.psum(torch.einsum("bkgt,btkd->bkgd", p, v_cache.float()),
+                        axes, mesh)
+    out = (acc / l[..., None]).to(v_cache.dtype)
     return out.reshape(b, 1, h, dh)
 
 

@@ -1,10 +1,10 @@
 """Transformer family configuration covering all five assigned LM archs.
 
-The port's copy of ``repro/models/transformer/config.py``.  On one card
-the port runs the plain MoE and embedding: ``seq_parallel`` and
-``zero3_gather`` exist for a mesh and are refused by the model
-(ROADMAP.md, §A, the shardings slice); ``moe_groups`` splits the tokens
-into dispatch groups as the JAX package does off a mesh."""
+The port's copy of ``repro/models/transformer/config.py``.
+``seq_parallel``, ``zero3_gather`` and ``moe_groups`` act on a mesh
+installed with ``mesh_ops.use_mesh`` (``model.py`` says how); off a mesh
+the model runs its plain path and ``moe_groups`` splits the tokens into
+dispatch groups as the JAX package does."""
 from __future__ import annotations
 
 import dataclasses

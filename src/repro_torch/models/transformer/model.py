@@ -17,10 +17,28 @@ JAX package's per-layer ``jax.checkpoint``).  The loss is a chunked
 cross-entropy, each chunk checkpointed, so at most one chunk's
 (B, chunk, V) logits are held.
 
-On one card the port runs the plain MoE dispatch and the plain embedding;
-``seq_parallel`` and ``zero3_gather`` (the JAX package's sharding
-constraints, its sharded-embedding ``custom_vjp`` and its shard_map MoE)
-exist for a mesh and are refused here.
+On a mesh.  Inside ``mesh_ops.use_mesh(mesh)``, a config with
+``zero3_gather`` runs the JAX package's mesh-only variants as each rank's
+own code, on the blocks that ``launch/shardings.py`` gives the rank
+(``lm_param_specs``; tokens split over the data axes):
+
+  * attention weights are gathered over "model" at use;
+  * ``_gather_weight``: the FFN / expert weights, stored ZeRO-split over
+    every axis, are gathered to a d_ff slice per model rank
+    (``moe.local_ffn_weights``) and the partial outputs summed over
+    "model"; MoE dispatch runs one group per data rank;
+  * ``_ShardedEmbedLookup``: each model rank looks up its own vocab rows
+    and the ranks' rows are summed; its backward scatters only those rows
+    (peak (V / n_model, D));
+  * ``seq_parallel``: between layers the residual stream is this rank's
+    block of the sequence ("model"); attention gathers the keys and
+    values, the FFN the normed tokens;
+  * the chunked cross-entropy is vocab-parallel.
+
+There the loss is this rank's SHARE: the ranks' shares sum to the loss,
+and the collectives' adjoints (``mesh_ops``) give every rank the gradient
+of that sum.  Off a mesh the same configs run the plain path, as the JAX
+package's do without an abstract mesh.
 
 Serving: ``prefill`` and ``decode_step`` run without autograd and write
 the KV cache in place; ``KVCache.length`` is a Python int.
@@ -34,6 +52,7 @@ from typing import NamedTuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import mesh_ops
 from repro_torch.models.common import (
     ACTIVATIONS,
     dense_init,
@@ -45,10 +64,11 @@ from repro_torch.models.transformer.attention import (
     apply_rope,
     blockwise_attention,
     decode_attention,
+    decode_attention_sharded,
     qk_rms_norm,
 )
 from repro_torch.models.transformer.config import TransformerConfig
-from repro_torch.models.transformer.moe import moe_ffn_grouped
+from repro_torch.models.transformer.moe import local_ffn_weights, moe_ffn_grouped
 from repro_torch.training.optimizer import tree_leaves
 
 
@@ -60,11 +80,24 @@ def _dtype(cfg: TransformerConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _check_single_device(cfg: TransformerConfig) -> None:
-    if cfg.seq_parallel is not None or cfg.zero3_gather:
-        raise NotImplementedError(
-            f"{cfg.name}: seq_parallel and zero3_gather need a mesh; the "
-            "shardings slice is not ported yet (ROADMAP.md, §A)")
+def _mesh(cfg: TransformerConfig):
+    """The installed mesh when ``cfg`` asks for the mesh variants, else
+    None (off a mesh they are the plain path)."""
+    if not cfg.zero3_gather and cfg.seq_parallel is None:
+        return None
+    mesh = mesh_ops.current_mesh()
+    if mesh is None:
+        return None
+    if not cfg.zero3_gather:
+        raise ValueError(f"{cfg.name}: on a mesh the FFN weights are stored "
+                         "ZeRO-split (launch/shardings.py); set zero3_gather")
+    if "model" not in mesh.mesh_dim_names:
+        raise ValueError(f"mesh {mesh.mesh_dim_names} has no 'model' axis")
+    return mesh
+
+
+def _batch_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.mesh_dim_names if a != "model")
 
 
 def _mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -119,7 +152,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """Random parameters in the JAX tree layout on ``device`` (the
     generator lives there too); leaves require grad unless
     ``requires_grad`` is False (serving)."""
-    _check_single_device(cfg)
     per = _period(cfg)
     n_per = cfg.n_layers // per
     rem = cfg.n_layers - n_per * per
@@ -160,9 +192,17 @@ def _layer_params(cfg: TransformerConfig, params: dict) -> list[dict]:
 # --------------------------------------------------------------- forward --
 
 def _attn_block(cfg: TransformerConfig, p: dict, x, positions, is_local: bool,
-                cache=None, cache_len: int = 0):
+                cache=None, cache_len: int = 0, mesh=None, sp: bool = False,
+                cache_axes=("model",)):
     """(out, (k, v)): the layer's keys and values, or with a cache the
-    cache views written in place."""
+    cache views written in place.  On a mesh the weights are gathered over
+    "model"; ``sp``: ``x`` is this rank's block of the sequence; with a
+    cache, prefill writes this rank's head_dim block of the cache and
+    decode reads a cache cut over ``cache_axes`` on the sequence."""
+    if mesh is not None:
+        p = dict(p, **{k: mesh_ops.gather(p[k], "model", -1, mesh)
+                       for k in ("wq", "wk", "wv")},
+                 wo=mesh_ops.gather(p["wo"], "model", -2, mesh))
     b, s, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     y = rms_norm(x, p["ln_attn"], cfg.norm_eps)
@@ -176,12 +216,24 @@ def _attn_block(cfg: TransformerConfig, p: dict, x, positions, is_local: bool,
     k = apply_rope(k, positions, cfg.rope_theta)
     window = cfg.window if is_local else None
 
-    if cache is None or s > 1:
+    out = None
+    if sp:  # this rank's queries against the whole sequence's keys
+        q_offset = mesh_ops.axis_index(mesh, "model") * s
+        k = mesh_ops.gather(k, "model", 1, mesh)
+        v = mesh_ops.gather(v, "model", 1, mesh)
+        out = blockwise_attention(
+            q, k, v, window=window, attn_cap=cfg.attn_softcap,
+            chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+            q_offset=q_offset)
+    elif cache is None or s > 1:
         # training, or prefill: blockwise attention over the prompt
         out = blockwise_attention(
             q, k, v, window=window, attn_cap=cfg.attn_softcap,
             chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv)
-    if cache is not None:
+    if cache is not None and mesh is not None:
+        out, (k, v) = _sharded_cache(cfg, mesh, q, k, v, cache, cache_len,
+                                     window, cache_axes, out)
+    elif cache is not None:
         k_cache, v_cache = cache
         k_cache[:, cache_len:cache_len + s] = k.to(k_cache.dtype)
         v_cache[:, cache_len:cache_len + s] = v.to(v_cache.dtype)
@@ -197,11 +249,72 @@ def _attn_block(cfg: TransformerConfig, p: dict, x, positions, is_local: bool,
     return out, (k, v)
 
 
-def _ffn_block(cfg: TransformerConfig, p: dict, x):
+def _sharded_cache(cfg, mesh, q, k, v, cache, cache_len, window, cache_axes,
+                   out):
+    """The cache writes and the decode read on a mesh: prefill writes this
+    rank's head_dim block of the prompt's keys and values; decode writes
+    the new position where this rank's block of the sequence holds it and
+    attends with a distributed softmax."""
+    k_cache, v_cache = cache
+    s = k.shape[1]
+    if s > 1:
+        dh = k_cache.shape[-1]
+        lo = mesh_ops.axis_index(mesh, "model") * dh
+        k_cache[:, cache_len:cache_len + s] = k[..., lo:lo + dh].to(k_cache.dtype)
+        v_cache[:, cache_len:cache_len + s] = v[..., lo:lo + dh].to(v_cache.dtype)
+        return out, (k_cache, v_cache)
+    s_local = k_cache.shape[1]
+    offset = mesh_ops.axis_index(mesh, cache_axes) * s_local
+    if offset <= cache_len < offset + s_local:
+        k_cache[:, cache_len - offset] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cache_len - offset] = v[:, 0].to(v_cache.dtype)
+    out = decode_attention_sharded(q, k_cache, v_cache, cache_len + 1,
+                                   window=window, attn_cap=cfg.attn_softcap,
+                                   offset=offset, axes=cache_axes, mesh=mesh)
+    return out, (k_cache, v_cache)
+
+
+def _ffn_block_sharded(cfg: TransformerConfig, p: dict, y, mesh, sp: bool):
+    """The FFN on a mesh: this model rank's d_ff slice of the weights over
+    every token of the rank's data shard (``sp``: gathered over "model"),
+    the partial outputs summed over "model" (``sp``: this rank's block of
+    the sequence kept)."""
+    if sp:
+        y = mesh_ops.gather(y, "model", 1, mesh)
+    b, s, d = y.shape
+    if cfg.is_moe:
+        if cfg.moe_groups not in (1, mesh_ops.axis_size(mesh, _batch_axes(mesh))):
+            raise ValueError(f"{cfg.name}: on a mesh MoE dispatch runs one "
+                             "group per data rank; moe_groups must be 1 or "
+                             "the data ranks' count")
+        out, aux = moe_ffn_grouped(
+            y.reshape(b * s, d), p["router"], p["w_in"], p["w_out"],
+            top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+            act=cfg.act, gated=cfg.gated_mlp, mesh=mesh)
+        out = out.reshape(b, s, d)
+    else:
+        w_in, w_out = local_ffn_weights(p["w_in"], p["w_out"], cfg.gated_mlp,
+                                        mesh)
+        h = _mm("bsd,df->bsf", y, w_in)
+        if cfg.gated_mlp:
+            g, u = torch.chunk(h, 2, dim=-1)
+            h = ACTIVATIONS[cfg.act](g) * u
+        else:
+            h = ACTIVATIONS[cfg.act](h)
+        out = mesh_ops.psum(_mm("bsf,fd->bsd", h, w_out), "model", mesh)
+        aux = torch.zeros((), dtype=torch.float32, device=y.device)
+    if sp:
+        out = mesh_ops.block(out, mesh, "model", 1)
+    return out, aux
+
+
+def _ffn_block(cfg: TransformerConfig, p: dict, x, mesh=None, sp: bool = False):
     """(out, aux_loss)."""
     b, s, d = x.shape
     y = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    if cfg.is_moe:
+    if mesh is not None:
+        out, aux = _ffn_block_sharded(cfg, p, y, mesh, sp)
+    elif cfg.is_moe:
         out, aux = moe_ffn_grouped(
             y.reshape(b * s, d), p["router"], p["w_in"], p["w_out"],
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
@@ -221,34 +334,73 @@ def _ffn_block(cfg: TransformerConfig, p: dict, x):
     return out, aux
 
 
-def _layer(cfg, p, x, positions, is_local, cache=None, cache_len: int = 0):
+def _layer(cfg, p, x, positions, is_local, cache=None, cache_len: int = 0,
+           mesh=None, sp: bool = False, cache_axes=("model",)):
     attn_out, new_cache = _attn_block(cfg, p, x, positions, is_local, cache,
-                                      cache_len)
+                                      cache_len, mesh, sp, cache_axes)
     x = x + attn_out
-    ffn_out, aux = _ffn_block(cfg, p, x)
+    ffn_out, aux = _ffn_block(cfg, p, x, mesh, sp)
     return x + ffn_out, aux, new_cache
 
 
+class _ShardedEmbedLookup(torch.autograd.Function):
+    """This model rank's vocab rows of ``embed[tokens]`` (zeros for the
+    other ranks' tokens), the JAX package's ``_sharded_embed_lookup``.
+    The backward scatters the gradient into this rank's rows only: its
+    peak is (V / n_model, D), never the whole table's."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens, offset):
+        rows = embed.shape[0]
+        idx = tokens.long() - offset
+        valid = (idx >= 0) & (idx < rows)
+        idx = torch.where(valid, idx, 0)
+        ctx.save_for_backward(idx, valid)
+        ctx.rows = rows
+        return torch.where(valid[..., None], embed[idx], 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, valid = ctx.saved_tensors
+        d = g.shape[-1]
+        g = torch.where(valid[..., None], g, 0).reshape(-1, d)
+        out = torch.zeros((ctx.rows, d), dtype=g.dtype, device=g.device)
+        return out.index_add_(0, idx.reshape(-1), g), None, None
+
+
 def embed_tokens(cfg: TransformerConfig, params, tokens):
-    x = params["embed"][tokens.long()]
+    mesh = _mesh(cfg)
+    if mesh is not None:  # the vocab is split over "model"
+        rows = params["embed"].shape[0]
+        offset = mesh_ops.axis_index(mesh, "model") * rows
+        x = mesh_ops.psum(_ShardedEmbedLookup.apply(params["embed"], tokens,
+                                                    offset), "model", mesh)
+    else:
+        x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
     return x
 
 
-def _train_layer(cfg, is_local, x, p, positions):
-    out, aux, _ = _layer(cfg, p, x, positions, is_local)
+def _train_layer(cfg, is_local, mesh, sp, x, p, positions):
+    out, aux, _ = _layer(cfg, p, x, positions, is_local, mesh=mesh, sp=sp)
     return out, aux
 
 
 def forward_hidden(cfg: TransformerConfig, params, tokens, positions):
-    """Token ids -> (final hidden states (B, S, D), summed aux loss)."""
-    _check_single_device(cfg)
+    """Token ids -> (final hidden states (B, S, D), summed aux loss).  With
+    ``seq_parallel`` on a mesh the states are this rank's block of the
+    sequence (B, S / n_model, D)."""
+    mesh = _mesh(cfg)
+    sp = mesh is not None and cfg.seq_parallel is not None
     x = embed_tokens(cfg, params, tokens)
+    if sp:  # the JAX package's _seq_shard: S over "model" between layers
+        x = mesh_ops.block(x, mesh, "model", 1)
+        positions = mesh_ops.block(positions, mesh, "model", 1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, is_local in zip(_layer_params(cfg, params), cfg.layer_kinds()):
-        fn = functools.partial(_train_layer, cfg, is_local)
+        fn = functools.partial(_train_layer, cfg, is_local, mesh, sp)
         if cfg.remat and torch.is_grad_enabled():
             x, a = checkpoint(fn, x, p, positions, use_reentrant=False)
         else:
@@ -274,26 +426,54 @@ def _chunk_ce(cfg, h_c, l_c, m_c, w):
     return torch.sum((lse - true) * m_c)
 
 
+def _chunk_ce_vocab_parallel(cfg, mesh, h_c, l_c, m_c, w):
+    """``_chunk_ce`` with the head's vocab split over "model": each rank's
+    log-sum-exp over its columns, combined over the ranks, and the true
+    logit from the rank that holds it."""
+    logits = softcap(_mm("bsd,dv->bsv", h_c, w).float(), cfg.final_softcap)
+    v_local = logits.shape[-1]
+    lse = torch.logsumexp(mesh_ops.gather(
+        torch.logsumexp(logits, dim=-1)[None], "model", 0, mesh), dim=0)
+    idx = l_c - mesh_ops.axis_index(mesh, "model") * v_local
+    valid = (idx >= 0) & (idx < v_local)
+    true = torch.gather(logits, -1, torch.where(valid, idx, 0)[..., None])[..., 0]
+    true = mesh_ops.psum(torch.where(valid, true, 0.0), "model", mesh)
+    return torch.sum((lse - true) * m_c)
+
+
 def chunked_ce_loss(cfg: TransformerConfig, params, hidden, labels,
                     mask=None):
     """Mean cross entropy over the (masked) positions, one sequence chunk
     at a time; each chunk is checkpointed, so (B, S, V) logits are never
-    held for more than one chunk."""
+    held for more than one chunk.  On a mesh: vocab-parallel over this
+    rank's data shard (``hidden`` gathered over "model" when it is a block
+    of the sequence), and the result is this rank's share."""
+    mesh = _mesh(cfg)
+    if mesh is not None and hidden.shape[1] != labels.shape[1]:
+        hidden = mesh_ops.gather(hidden, "model", 1, mesh)
     b, s, d = hidden.shape
     chunk = min(cfg.ce_chunk, s)
     n = -(-s // chunk)
     if mask is None:
         mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
     w = _head(cfg, params)
+    chunk_fn = (_chunk_ce if mesh is None
+                else functools.partial(_chunk_ce_vocab_parallel, cfg, mesh))
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
         sl = slice(i * chunk, min((i + 1) * chunk, s))
-        args = (cfg, hidden[:, sl], labels[:, sl].long(), mask[:, sl], w)
+        args = (hidden[:, sl], labels[:, sl].long(), mask[:, sl], w)
+        if mesh is None:
+            args = (cfg, *args)
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_ce, *args, use_reentrant=False)
+            total = total + checkpoint(chunk_fn, *args, use_reentrant=False)
         else:
-            total = total + _chunk_ce(*args)
-    return total / torch.clamp(mask.sum(), min=1.0)
+            total = total + chunk_fn(*args)
+    if mesh is None:
+        return total / torch.clamp(mask.sum(), min=1.0)
+    # the model ranks of a data shard hold the same sum: each takes 1/n of it
+    count = mesh_ops.psum(mask.sum().detach(), _batch_axes(mesh), mesh)
+    return total / torch.clamp(count, min=1.0) / mesh_ops.axis_size(mesh, "model")
 
 
 def lm_loss(cfg: TransformerConfig, params, tokens, labels,
@@ -302,6 +482,9 @@ def lm_loss(cfg: TransformerConfig, params, tokens, labels,
                              device=tokens.device)[None, :]
     hidden, aux = forward_hidden(cfg, params, tokens, positions)
     ce = chunked_ce_loss(cfg, params, hidden, labels)
+    mesh = _mesh(cfg)
+    if mesh is not None:  # every rank of the mesh holds its group's aux
+        aux = aux / mesh_ops.axis_size(mesh, mesh.mesh_dim_names)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -340,14 +523,25 @@ def _cache_views(cfg: TransformerConfig, cache: KVCache):
                     for j in range(cache.k_tail.shape[0])]
 
 
-def _run_cached(cfg, params, tokens, cache: KVCache, positions):
-    _check_single_device(cfg)
+def _run_cached(cfg, params, tokens, cache: KVCache, positions,
+                cache_axes=("model",)):
+    mesh = _mesh(cfg)
     x = embed_tokens(cfg, params, tokens)
     for p, is_local, kv in zip(_layer_params(cfg, params), cfg.layer_kinds(),
                                _cache_views(cfg, cache)):
         x, _, _ = _layer(cfg, p, x, positions, is_local, cache=kv,
-                         cache_len=cache.length)
+                         cache_len=cache.length, mesh=mesh,
+                         cache_axes=cache_axes)
     return rms_norm(x, params["ln_final"], cfg.norm_eps)
+
+
+def _logits(cfg, params, x):
+    """``logits_from_hidden``; on a mesh the vocab blocks are gathered."""
+    logits = logits_from_hidden(cfg, params, x)
+    mesh = _mesh(cfg)
+    if mesh is not None:
+        logits = mesh_ops.gather(logits, "model", -1, mesh)
+    return logits
 
 
 @torch.no_grad()
@@ -358,15 +552,18 @@ def prefill(cfg: TransformerConfig, params, tokens, cache: KVCache):
     cache = cache._replace(length=0)
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :]
     x = _run_cached(cfg, params, tokens, cache, positions)
-    logits = logits_from_hidden(cfg, params, x[:, -1:])
+    logits = _logits(cfg, params, x[:, -1:])
     return logits, cache._replace(length=s)
 
 
 @torch.no_grad()
-def decode_step(cfg: TransformerConfig, params, tokens, cache: KVCache):
-    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache)."""
+def decode_step(cfg: TransformerConfig, params, tokens, cache: KVCache, *,
+                cache_axes=("model",)):
+    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).  On a
+    mesh the cache's sequence is cut over ``cache_axes`` (every axis for
+    the batch-1 long-context cells)."""
     positions = torch.full((tokens.shape[0], 1), cache.length,
                            dtype=torch.int32, device=tokens.device)
-    x = _run_cached(cfg, params, tokens, cache, positions)
-    logits = logits_from_hidden(cfg, params, x)
+    x = _run_cached(cfg, params, tokens, cache, positions, cache_axes)
+    logits = _logits(cfg, params, x)
     return logits, cache._replace(length=cache.length + 1)

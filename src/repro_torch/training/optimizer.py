@@ -112,9 +112,10 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(``tree`` scaled to global norm at most ``max_norm``, its norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """(``tree`` scaled to global norm at most ``max_norm``, its norm);
+    ``norm``: the norm when it is known (a tree of blocks on a mesh)."""
+    norm = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), tree), norm
 
@@ -138,11 +139,13 @@ def _as_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params, *,
+                 grad_norm=None):
     """One AdamW step: ``params`` and the moments updated in place.
     Returns ``(params, AdamWState, {"lr", "grad_norm"})``; weight decay
-    applies to leaves of two or more dimensions only."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    applies to leaves of two or more dimensions only.  ``grad_norm``: the
+    global norm of the gradient when ``grads`` holds only blocks of it."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = cosine_warmup_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

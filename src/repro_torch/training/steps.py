@@ -69,6 +69,72 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, *,
     return step
 
 
+def _cut_axes(param_specs) -> list[frozenset]:
+    from repro_torch.launch.shardings import tree_items
+
+    return [frozenset(a for e in p for a in ((e,) if isinstance(e, str)
+                                             else (e or ())))
+            for _, p in tree_items(param_specs)]
+
+
+def mesh_grads(loss_fn: Callable, params, batch: dict, param_specs, mesh):
+    """(loss, metrics, gradient blocks) on one rank of ``mesh``:
+    ``params`` holds this rank's blocks (``param_specs``) and ``loss_fn``
+    returns this rank's SHARE of the loss (the ranks' shares sum to it, as
+    the models' mesh variants give it).  Each gradient block is summed
+    over the axes its spec does not cut (the ranks that hold the same
+    block computed parts of it); loss and metrics are the shares' sums."""
+    from repro_torch.distributed import mesh_ops
+
+    every = tuple(mesh.mesh_dim_names)
+    cut = _cut_axes(param_specs)
+    leaves = tree_leaves(params)
+    if len(leaves) != len(cut):
+        raise ValueError(f"{len(leaves)} leaves, {len(cut)} specs")
+    loss, metrics, grads = _grads(loss_fn, params, batch, leaves)
+    grads = [mesh_ops.psum(g, tuple(a for a in every if a not in c), mesh)
+             for g, c in zip(grads, cut)]
+    metrics = {k: mesh_ops.psum(v.detach(), every, mesh)
+               for k, v in (metrics or {}).items()}
+    return mesh_ops.psum(loss, every, mesh), metrics, grads
+
+
+def make_mesh_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
+                         param_specs, mesh) -> Callable:
+    """``make_train_step`` for one rank of ``mesh``: ``mesh_grads``, then
+    ``mesh_update`` of the state's blocks in place.  Loss and metrics are
+    the same on every rank."""
+    def step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        loss, metrics, grads = mesh_grads(loss_fn, state.params, batch,
+                                          param_specs, mesh)
+        state, opt_metrics = mesh_update(opt_cfg, state, grads, param_specs,
+                                         mesh)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return state, metrics
+
+    return step
+
+
+def mesh_update(opt_cfg: AdamWConfig, state: TrainState, grads: list,
+                param_specs, mesh) -> tuple[TrainState, dict]:
+    """AdamW on this rank's blocks, ``grads`` from ``mesh_grads``: the
+    global norm from the blocks' squares, each summed over the axes that
+    cut its leaf."""
+    from repro_torch.distributed import mesh_ops
+
+    every = tuple(mesh.mesh_dim_names)
+    by_axes: dict = {}
+    for g, c in zip(grads, _cut_axes(param_specs)):
+        by_axes[c] = by_axes.get(c, 0.0) + torch.sum(torch.square(g.float()))
+    total = sum(mesh_ops.psum(sq, tuple(a for a in every if a in c), mesh)
+                for c, sq in by_axes.items())
+    params, opt, metrics = adamw_update(
+        opt_cfg, tree_unflatten(state.params, grads), state.opt, state.params,
+        grad_norm=torch.sqrt(total))
+    return TrainState(params, opt), metrics
+
+
 def init_train_state(params, opt_cfg: AdamWConfig) -> TrainState:
     return TrainState(params=params, opt=adamw_init(opt_cfg, params))
 
@@ -85,13 +151,17 @@ def lm_loss_fn(cfg):
 
 
 def gnn_node_class_loss_fn(cfg, forward, n_classes: int):
+    """Masked mean cross-entropy over the nodes; on a mesh (a split graph)
+    this rank's share of it."""
+    from repro_torch.models.gnn.graph import summed
+
     def loss_fn(params, batch):
         g, labels = batch["graph"], batch["labels"]
         logits = forward(cfg, params, g)[..., :n_classes]
         lse = torch.logsumexp(logits, dim=-1)
         true = torch.take_along_dim(logits, labels.long()[:, None], dim=-1)[:, 0]
         loss = torch.sum((lse - true) * g.node_mask) / torch.clamp_min(
-            g.node_mask.sum(), 1.0)
+            summed(g.node_mask.sum()), 1.0)
         return loss, {"ce": loss}
 
     return loss_fn

@@ -102,13 +102,41 @@ def test_rejects_bad_inputs():
         embedding_bag(table[:, :0], idx)
     with pytest.raises(ValueError, match=r"idx must be \[B, F\]"):
         embedding_bag(table, idx[0])
-    # a weighted bag has no backward; an unweighted one takes its table's
+    # a weighted bag has no backward in its weights; any bag takes its
+    # table's
     with pytest.raises(NotImplementedError, match="no backward"):
-        embedding_bag(table.requires_grad_(), idx, wts)
+        embedding_bag(table, idx, wts.clone().requires_grad_())
+    table.requires_grad_()
     assert embedding_bag(table, idx).grad_fn is not None
+    assert embedding_bag(table, idx, wts).grad_fn is not None
     with torch.no_grad():
         assert embedding_bag(table, idx).shape == (3, 4)
         assert embedding_bag(table, idx, wts).shape == (3, 4)
+
+
+@pytest.mark.parametrize("squared", [False, True], ids=["bag", "sum_and_square"])
+def test_weighted_bag_table_gradient_through_the_backward(squared):
+    """A weighted bag's table gradient, one bag per pair through
+    ``embedding_bag_backward``, equals autograd of the gathered rows
+    (0/1 weights, as the table-parallel FM gives them, and any others)."""
+    table, idx, wts = (torch.as_tensor(x) for x in _inputs(40, 6, 9, 5, 4))
+    wts[::2, 1:3] = 0.0
+    wts[1::3, 0] = 1.0
+    g_sum, g_sq = torch.randn(9, 6), torch.randn(9, 6)
+    t = table.clone().requires_grad_()
+    if squared:
+        a, b = eb.sum_and_square_bags(t, (table * table).contiguous(), idx, wts)
+        (got,) = torch.autograd.grad((a * g_sum).sum() + (b * g_sq).sum(), t)
+    else:
+        (got,) = torch.autograd.grad((embedding_bag(t, idx, wts) * g_sum).sum(),
+                                     t)
+    r = table.double().clone().requires_grad_()
+    rows, w = r[idx.long()], wts.double()[..., None]
+    want = (rows * w).sum(1) * g_sum.double()
+    if squared:
+        want = want + (rows * rows * w).sum(1) * g_sq.double()
+    (want,) = torch.autograd.grad(want.sum(), r)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
 def test_launch_counter_stays_zero_on_cpu_and_ops_reexports():

@@ -225,7 +225,7 @@ def test_serving_path_builds_no_graph_and_weighted_bags_refuse_grad():
     table = torch.randn(10, 4, requires_grad=True)
     idx = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="weighted bag's backward"):
-        embedding_bag(table, idx, torch.ones(3, 2))
+        embedding_bag(table, idx, torch.ones(3, 2, requires_grad=True))
     with torch.no_grad():
         assert embedding_bag(table, idx, torch.ones(3, 2)).shape == (3, 4)
 

@@ -40,7 +40,7 @@ from repro_torch.kernels import (
     reach_step,
 )
 from repro_torch.distributed import choose_topology, group, run_ranks
-from repro_torch.distributed import sketch_parallel
+from repro_torch.distributed import mesh_ops, sketch_parallel
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.launch import train as ttrain
@@ -142,6 +142,38 @@ def test_gnn_slice_modules_are_scanned(module):
     test_runtime_slice_modules_are_scanned(module)
 
 
+# the shardings slice: the specs, the mesh's per-rank collectives, the
+# cells and the dry run, and the modules whose mesh variants it added
+SHARDINGS_SLICE = ["launch/shardings.py", "launch/dryrun.py",
+                   "distributed/mesh_ops.py", "distributed/group.py",
+                   "configs/registry.py", "configs/shapes.py",
+                   "models/transformer/model.py", "models/transformer/moe.py",
+                   "models/transformer/attention.py", "training/steps.py"]
+
+
+@pytest.mark.parametrize("module", SHARDINGS_SLICE)
+def test_shardings_slice_modules_are_scanned(module):
+    test_runtime_slice_modules_are_scanned(module)
+
+
+def test_the_dry_run_is_the_one_entry_point_off_the_card():
+    """``launch/dryrun.py`` traces cells as rank 0 of fake ranks, on tensors
+    without storage: a plan for 256 or 512 cards, not work on this one.
+    It is the one named exception to the card default, and no other module
+    of the port starts fake ranks."""
+    from repro_torch.launch import dryrun, shardings
+
+    port = REPO / "src" / "repro_torch"
+    users = sorted(p.relative_to(port).as_posix() for p in PORT_FILES
+                   if "fake_ranks(" in p.read_text() and p.is_relative_to(port))
+    assert users == ["distributed/group.py", "launch/dryrun.py"]
+    assert "does not run on the" in dryrun.__doc__
+    assert "card" in dryrun.__doc__.split("does not run on the")[1][:20]
+    for fn in (tregistry.build_cell, tregistry.build_lm_cell,
+               shardings.lm_param_specs, shardings.shard_tree):
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
+
+
 def test_gnn_slice_holds_every_module_of_the_jax_family():
     ref = sorted(p.name for p in (REPO / "src" / "repro" / "models" / "gnn").glob("*.py"))
     port = sorted(p.name for p in (REPO / "src" / "repro_torch" / "models" / "gnn").glob("*.py"))
@@ -235,7 +267,7 @@ def test_constructors_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("module", [sketch_parallel, tmesh],
+@pytest.mark.parametrize("module", [sketch_parallel, tmesh, mesh_ops],
                          ids=lambda m: m.__name__)
 def test_distributed_entry_points_take_the_groups_device(module):
     """The mesh and the distributed sketch have no device of their own: they
@@ -257,7 +289,7 @@ COLLECTIVE_CALLS = {"all_reduce", "all_gather", "all_gather_into_tensor",
                     "init_process_group", "init_device_mesh", "new_group"}
 
 
-@pytest.mark.parametrize("module", [group, sketch_parallel, tmesh],
+@pytest.mark.parametrize("module", [group, sketch_parallel, tmesh, mesh_ops],
                          ids=lambda m: m.__name__)
 def test_backend_is_chosen_without_catching_a_collectives_error(module):
     """No ``try`` with an ``except`` wraps a collective (the backend and the

@@ -264,8 +264,19 @@ def test_remat_changes_nothing(name):
 
 
 def test_mesh_only_options_are_refused():
-    _, tcfg = _cfgs("gemma2-2b")
+    """The mesh-only options act only on a mesh: off one they are the plain
+    path (as the JAX package's are without an abstract mesh), and on one
+    sequence parallelism without the ZeRO-3 storage is refused."""
+    from repro_torch.distributed import mesh_ops
+    from repro_torch.launch.shardings import MeshShape
+
+    _, tcfg, _, tp = _carried("gemma2-2b", seed=5)
+    toks = torch.as_tensor(_tokens(6, (2, 24)))
+    plain, _ = tm.lm_loss(tcfg, tp, toks, toks)
     for kw in ({"seq_parallel": ("data",)}, {"zero3_gather": True}):
-        with pytest.raises(NotImplementedError, match="shardings slice"):
-            tm.init_params(dataclasses.replace(tcfg, **kw),
-                           torch.Generator().manual_seed(0), "cpu")
+        cfg = dataclasses.replace(tcfg, **kw)
+        assert torch.equal(tm.lm_loss(cfg, tp, toks, toks)[0], plain)
+    with mesh_ops.use_mesh(MeshShape(("data", "model"), (2, 2))):
+        with pytest.raises(ValueError, match="zero3_gather"):
+            tm.lm_loss(dataclasses.replace(tcfg, seq_parallel=("data",)),
+                       tp, toks, toks)
