@@ -256,11 +256,30 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      step time (first and second step), each rank's peak memory and
      ``collective_stats()`` by kind (calls, bytes, seconds, host-carried
      share).
+  O. The analysis gate and the examples, all started at once in child
+     processes: ``python -m repro_torch.analysis --gate`` must exit 0;
+     three ``query_serve`` runs at phase I's flags on ``cuda``, each under
+     ``python -m repro_torch.analysis.witness chip_smoke --o-child OUT``
+     (this script as the witnessed child: it runs query_serve, counts its
+     launches and saves the final front): the kMatrix with
+     ``--ingest-dedup``, the gMatrix with ``--shards 4``, and the kMatrix
+     with ``--runtime-backend socket --serve 127.0.0.1:0`` (the network
+     tier's guarded fields).  Each must report 0 lock-order cycles, 0
+     unlocked publishes and 0 fronts written after publish, with its
+     lock sites and ordered edges; its final front (sharded: the merged
+     one) bit-equal to phase H's replays on the card and the CPU; its
+     edges the stream's; ``reach_closure`` launches equal to its closure
+     misses, ``matrix_lookup_edges`` only for the gMatrix.  The children's
+     ``matrix_ingest_edges``, ``reach_closure`` and ``matrix_lookup_edges``
+     launches join the kernels line.  Then the five examples on ``cuda``
+     at their own sizes (``python -m repro_torch.examples.<name>``;
+     ``train_lm`` cut to ``--steps 30``) must exit 0.
 
 The last lines are one ``{"kernels": [...]}`` JSON object and then
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is summed
 over the paths that run it, each path counted from zero just before it
-runs (``launches_by_path``), in this process only: the launches of phase
+runs (``launches_by_path``), in this process and, from their returns,
+phase N2's ranks and phase O's witnessed children: the launches of phase
 J's worker child processes and listen host are not counted there.
 """
 from __future__ import annotations
@@ -412,6 +431,21 @@ N_LMS = (("mixtral-8x7b", 1, 2), ("gemma2-2b", 2, 1))  # arch, layers, groups
 # vocab in other orders (worst seen at full width 6.6e-6 of a leaf's max)
 N_GRAD_REL = 3e-5
 N_LOSS_REL = 1e-5
+
+
+# phase O: the analysis gate, three witnessed query_serve runs in child
+# processes (phase I's flags), and the five examples at their own sizes;
+# train_lm cut to 30 of its 300 steps
+O_CHILD = "--o-child"  # chip_smoke.py's mode as a witnessed child
+O_RUNS = (("kmatrix --ingest-dedup", ["--sketch", "kmatrix", "--ingest-dedup"]),
+          ("gmatrix --shards 4", ["--sketch", "gmatrix", "--shards", "4"]),
+          ("kmatrix socket --serve", ["--sketch", "kmatrix", "--runtime-backend",
+                                      "socket", "--serve", "127.0.0.1:0"]))
+O_KERNELS = ("matrix_ingest_edges", "reach_closure", "matrix_lookup_edges")
+O_EXAMPLES = (("quickstart", []), ("sketch_queries", []),
+              ("query_serving", []), ("background_ingest", []),
+              ("train_lm", ["--steps", "30"]))
+O_TIMEOUT_S = 300
 
 
 def card_line() -> str:
@@ -1274,12 +1308,14 @@ def _timeline():
     from repro_torch.launch import query_serve
     from repro_torch.runtime.supervisor import StreamPump
 
-    box = {"batches": [], "pumps_done": []}
+    box = {"batches": [], "pumps_done": [], "mean_ms": None}
     orig_load, orig_pump = query_serve.run_load, StreamPump.run
 
     def run_load(args, engine, *rest, **kw):
-        return orig_load(args, _TimedEngine(engine, box["batches"]), *rest,
-                         **kw)
+        report, extras = orig_load(args, _TimedEngine(engine, box["batches"]),
+                                   *rest, **kw)
+        box["mean_ms"] = report.mean_ms  # the load generator's own mean
+        return report, extras
 
     def pump_run(self):
         try:
@@ -1295,16 +1331,23 @@ def _timeline():
     return box, restore
 
 
-def _latency_split(batches, qps, ingest_done, pumps_done) -> dict:
+def _latency_split(batches, qps, ingest_done, pumps_done, mean_ms) -> dict:
     """Each request's latency from the served batches (arrival i / qps from
-    the first batch's start, the load generator's clock to a few µs), split
-    at the last buffer ingest: the requests that arrived while the stream
-    was still being ingested, and those after; and p99 per arrival window."""
+    the load generator's start), split at the last buffer ingest: the
+    requests that arrived while the stream was still being ingested, and
+    those after; and p99 per arrival window.
+
+    The load generator's start ``t0`` is its own clock's zero: it gives
+    request i the latency (its batch's end - t0) - i / qps, so ``t0`` is
+    the mean of (end - arrival) less its mean latency ``mean_ms``.  The
+    first batch starts after ``t0``, by more than a millisecond when another
+    thread holds the GIL as the load starts (a process or in-process socket
+    worker encoding its first frames), so it cannot stand in for it."""
     import numpy as np
 
-    t0 = batches[0][0]
     ends = np.repeat([b[1] for b in batches], [b[2] for b in batches])
     arrival = np.arange(ends.size) / qps
+    t0 = float(np.mean(ends - arrival)) - mean_ms / 1e3
     lat = (ends - t0 - arrival) * 1e3
     cut = ingest_done - t0
 
@@ -1374,9 +1417,9 @@ def _bg_run(smoke, label, flags):
           f"included (host clock per group, read-back included; sharded: "
           f"one group per shard): {json.dumps(dict(sorted(by_family.items())))}")
     split = _latency_split(timeline["batches"], args.qps, ingests["last"],
-                           timeline["pumps_done"])
+                           timeline["pumps_done"], timeline["mean_ms"])
     print(f"  {label}: served batches and latency against the ingest "
-          f"(seconds from the first served batch): {json.dumps(split)}")
+          f"(seconds from the load generator's start): {json.dumps(split)}")
     kind = args.sketch
     smoke.check(abs(split["p99_ms_recomputed"] - summary["p99_ms"]) < 1.0,
                 f"{label}: p99 recomputed from the served batches "
@@ -4142,7 +4185,188 @@ def phase_mesh(smoke, card):
     return out
 
 
+# ------------------------------------------------------------ phase O --
+
+def _o_child(out: str, flags: list) -> int:
+    """A phase O child (run under ``python -m repro_torch.analysis.witness
+    chip_smoke --o-child OUT FLAGS...``): one ``query_serve`` run with
+    ``FLAGS``, launch-counted; its final front (sharded: the merged one),
+    launches and summary go to ``OUT``."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.launch import query_serve
+
+    args = query_serve.parse_args(flags)
+    reset_launches()
+    run = query_serve._run(args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    launches = read_launches()
+    tenant = run["tenant"]
+    final = tenant.merged_snapshot() if args.shards > 1 else tenant.snapshot
+    leaves, static = interop.export_state(final.sketch)
+    torch.save({"leaves": leaves, "static": static, "launches": launches,
+                "summary": run["summary"]}, out)
+    return 0
+
+
+def _o_start(cmd: list, log: str, env: dict):
+    with open(log, "w") as f:
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, text=True)
+
+
+def _o_wait_all(procs: dict, timeout_s: float) -> dict:
+    """{key: (exit code or "timeout", output, seconds from start to exit)}
+    of phase O's children (``procs``: key -> (process, log, start time));
+    a child still running at the deadline is killed."""
+    deadline = time.monotonic() + timeout_s
+    ended: dict = {}
+    while len(ended) < len(procs) and time.monotonic() < deadline:
+        for key, (proc, _log, started) in procs.items():
+            if key not in ended and proc.poll() is not None:
+                ended[key] = (proc.returncode, time.perf_counter() - started)
+        time.sleep(0.1)
+    out = {}
+    for key, (proc, log, started) in procs.items():
+        if key not in ended:
+            proc.kill()
+            proc.wait()
+            ended[key] = ("timeout", time.perf_counter() - started)
+        with open(log) as f:
+            out[key] = (ended[key][0], f.read(), ended[key][1])
+    return out
+
+
+def _witness_line(text: str):
+    lines = [ln for ln in text.splitlines() if ln.startswith("lock witness: ")]
+    return json.loads(lines[-1][len("lock witness: "):]) if lines else None
+
+
+def _o_run_gates(smoke, label, flags, rc, text, state_path, replays):
+    """One witnessed run's gates: a clean witness, the front against phase
+    H's replays, its edges and launches."""
+    from repro_torch import interop
+
+    rep = _witness_line(text)
+    smoke.check(rc == 0 and rep is not None and rep["rc"] == 0,
+                f"O {label}: exit {rc} under the witness")
+    if rc != 0 or rep is None or not os.path.exists(state_path):
+        print(text[-3000:])
+        return None
+    smoke.check(rep["cycles"] == rep["unlocked_publishes"]
+                == rep["fronts_written"] == 0
+                and rep["sites"] > 0 and rep["edges"] > 0,
+                f"O {label}: witness sites {rep['sites']}, edges "
+                f"{rep['edges']}, cycles {rep['cycles']}, unlocked publishes "
+                f"{rep['unlocked_publishes']}, fronts written after publish "
+                f"{rep['fronts_written']}")
+    import torch
+
+    state = torch.load(state_path, weights_only=False)
+    summary, launches = state["summary"], state["launches"]
+    kind = flags[flags.index("--sketch") + 1]
+    front = interop.import_state(state["leaves"], state["static"],
+                                 device="cuda")
+    for where, replay in replays[kind].items():
+        smoke.check(_same_counters(front, replay),
+                    f"O {label}: final front == phase H's replay on the "
+                    f"{where}")
+    smoke.check(summary["total_edges"] == STREAM_EDGES
+                and summary["dropped_edges"] == 0,
+                f"O {label}: total_edges {summary['total_edges']} == "
+                f"{STREAM_EDGES}, none dropped")
+    misses = (summary.get("engine_sharded_closure_misses", 0)
+              + summary["engine_closure_misses"])
+    lookups = launches["matrix_lookup_edges"]
+    smoke.check(launches["reach_closure"] == misses > 0
+                and (lookups >= 1 if kind == "gmatrix" else lookups == 0),
+                f"O {label}: reach_closure launches == closure misses "
+                f"({misses}), matrix_lookup_edges {lookups}")
+    print(f"  O {label}: achieved_qps={summary['achieved_qps']} p50_ms="
+          f"{summary['p50_ms']} p99_ms={summary['p99_ms']} witness "
+          f"{json.dumps(rep)} launches "
+          f"{json.dumps({k: launches[k] for k in O_KERNELS})}")
+    return {"label": label, "witness": rep, "summary": summary,
+            "launches": {k: launches[k] for k in O_KERNELS}}
+
+
+def phase_analysis(smoke, card, replays):
+    """O: ``python -m repro_torch.analysis --gate``, three ``query_serve``
+    runs under the lock witness in child processes, and the five examples
+    on the card, all started at once."""
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)])}
+    tmp = tempfile.mkdtemp(prefix="phase-o-")
+    py = sys.executable
+    jobs = {"gate": [py, "-m", "repro_torch.analysis", "--gate", "--root",
+                     str(ROOT)]}
+    states = {}
+    for i, (label, flags) in enumerate(O_RUNS):
+        states[label] = os.path.join(tmp, f"run{i}.pt")
+        jobs[label] = [py, "-m", "repro_torch.analysis.witness", "chip_smoke",
+                       O_CHILD, states[label], *BG_FLAGS, *flags]
+    for name, args in O_EXAMPLES:
+        jobs[name] = [py, "-m", f"repro_torch.examples.{name}", *args]
+    procs, out = {}, {"runs": []}
+    try:
+        for key, cmd in jobs.items():
+            log = os.path.join(tmp, f"{len(procs)}.log")
+            procs[key] = (_o_start(cmd, log, env), log, time.perf_counter())
+        done = _o_wait_all(procs, O_TIMEOUT_S)
+        rc, text, secs = done["gate"]
+        smoke.check(rc == 0 and "analysis gate: clean" in text,
+                    f"O1 python -m repro_torch.analysis --gate: exit {rc} "
+                    f"({secs:.1f}s)")
+        if rc != 0:
+            print(text[-3000:])
+        for label, flags in O_RUNS:
+            rc, text, secs = done[label]
+            print(f"  O {label}: {secs:.1f}s")
+            run = _o_run_gates(smoke, label, flags, rc, text, states[label],
+                               replays)
+            if run is not None:
+                out["runs"].append(run)
+        for name, _args in O_EXAMPLES:
+            rc, text, secs = done[name]
+            lines = text.strip().splitlines()
+            smoke.check(rc == 0, f"O python -m repro_torch.examples.{name}"
+                        f"{' ' + ' '.join(_args) if _args else ''} on the "
+                        f"card: exit {rc} ({secs:.1f}s; last line: "
+                        f"{lines[-1] if lines else ''!r})")
+            if rc != 0:
+                print(text[-3000:])
+    finally:
+        for proc, _log, _t in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  {card}; phase O {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def _count_phase_o(kernels: list, runs: list) -> None:
+    """Phase O's witnessed children's launches in the kernels line, from
+    their reports (the way phase N2's ranks' are)."""
+    for name in O_KERNELS:
+        row = next(k for k in kernels if k["name"] == name)
+        for run in runs:
+            n = run["launches"][name]
+            row["launches_by_path"][f"O {run['label']} (witnessed child)"] = n
+            row["launches"] += n
+        row["launches_counted_in"] = (
+            "this process, and phase O's witnessed query_serve child "
+            "processes (from their reports); the kernels that phase J's "
+            "worker child processes and listen host launch are not counted "
+            "here")
+
+
 def main() -> int:
+    if sys.argv[1:2] == [O_CHILD]:
+        return _o_child(sys.argv[2], sys.argv[3:])
     try:
         import torch
     except ImportError:
@@ -4187,6 +4411,8 @@ def main() -> int:
                if reach is not None and fm is not None and serve is not None
                and bg is not None and net is not None and train is not None
                else None)
+    # phase O holds its fronts against phase H's replays (256 KB each)
+    replays = {k: serve[k]["replays"] for k in SERVE_KINDS} if serve else None
     # the GNN cells want the card's memory: drop what the earlier phases
     # hold (phase B's inputs among it) first
     del sl, cmp, reach, fm, serve, bg, net, train
@@ -4195,6 +4421,11 @@ def main() -> int:
         mesh = smoke.phase("N. the shardings slice", phase_mesh, smoke, card)
         if kernels and mesh:
             _count_phase_n(kernels, mesh["fm"])
+    if replays:
+        gate = smoke.phase("O. the analysis gate and the examples",
+                           phase_analysis, smoke, card, replays)
+        if kernels and gate:
+            _count_phase_o(kernels, gate["runs"])
     print(f"total {time.perf_counter() - t0:.1f}s")
     if smoke.failures or not kernels:
         print("FAILED: " + "; ".join(smoke.failures or ["phase missing"]))

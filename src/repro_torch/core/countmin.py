@@ -52,7 +52,7 @@ def _edge_cells(sk: CountMin, src: torch.Tensor, dst: torch.Tensor) -> torch.Ten
     return fastrange(sk.hashes.mix(key), sk.w).long()  # [d, *S]
 
 
-def ingest(sk: CountMin, batch: EdgeBatch) -> CountMin:
+def ingest(sk: CountMin, batch: EdgeBatch) -> CountMin:  # writes: 0
     """Add ``batch`` into ``sk.table`` in place; returns ``sk``."""
     idx = _edge_cells(sk, batch.src, batch.dst)  # [d, B]
     sk.table.scatter_add_(1, idx, batch.weight.to(torch.int32).expand_as(idx))

@@ -85,7 +85,7 @@ def _edge_cells(sk: GSketch, src: torch.Tensor, dst: torch.Tensor) -> torch.Tens
     return off[None] + local
 
 
-def ingest(sk: GSketch, batch: EdgeBatch) -> GSketch:
+def ingest(sk: GSketch, batch: EdgeBatch) -> GSketch:  # writes: 0
     """Add ``batch`` into ``sk.pool`` in place; returns ``sk``."""
     idx = _edge_cells(sk, batch.src, batch.dst)  # [d, B]
     sk.pool.scatter_add_(1, idx, batch.weight.to(torch.int32).expand_as(idx))

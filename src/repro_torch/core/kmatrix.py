@@ -113,7 +113,7 @@ def conn_cells(sk: KMatrix, v: torch.Tensor) -> torch.Tensor:
     return fastrange(sk.hashes.mix(v), sk.conn_w)
 
 
-def ingest(sk: KMatrix, batch: EdgeBatch) -> KMatrix:
+def ingest(sk: KMatrix, batch: EdgeBatch) -> KMatrix:  # writes: 0
     """Add ``batch`` into ``sk.pool`` and ``sk.conn`` in place; returns ``sk``.
 
     int32 counters wrap in two's complement, as the JAX package's do.

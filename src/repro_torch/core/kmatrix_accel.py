@@ -206,7 +206,8 @@ def _class_structure(widths: np.ndarray):
 # --------------------------------------------------------------- protocol --
 
 def ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
-           capacity: int | None = None, block_b: int = 128) -> KMatrixAccel:
+           capacity: int | None = None,
+           block_b: int = 128) -> KMatrixAccel:  # writes: 0
     """Exact batched ingest through one ``matrix_ingest_edges`` launch, in
     place; returns ``sk``.  See ``kernels.ops.kmatrix_accel_ingest``."""
     from repro_torch.kernels.ops import kmatrix_accel_ingest

@@ -58,7 +58,8 @@ def node_cells(sk: MatrixSketch, v: torch.Tensor) -> torch.Tensor:
     return fastrange(sk.hashes.mix(v), sk.w)
 
 
-def ingest(sk: MatrixSketch, batch: EdgeBatch) -> MatrixSketch:
+def ingest(sk: MatrixSketch,
+           batch: EdgeBatch) -> MatrixSketch:  # writes: 0
     """Add ``batch`` into ``sk.table`` in place (one ``matrix_ingest_edges``
     launch on a CUDA table); returns ``sk``.  Every nonzero weight counts,
     negative (turnstile) ones too, as in the JAX package."""

@@ -156,6 +156,7 @@ def _count(name: str, out: torch.Tensor, t0: float) -> None:
         row["host_bytes"] += nbytes
 
 
+# recompute-ok: a recomputed collective moves its bytes again; counted again
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (or reduce it by ``op``); returns
     ``t``."""
@@ -165,6 +166,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
+# recompute-ok: a recomputed collective moves its bytes again; counted again
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """Every group member's ``t``, stacked in group-rank order (received
     straight into the stacked tensor's rows)."""
@@ -189,6 +191,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+# recompute-ok: a recomputed collective moves its bytes again; counted again
 def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     """Block ``j`` of the sum of every member's ``t`` (dim 0 split in
     group-size equal blocks) goes to group rank ``j``: this rank's block."""
@@ -205,6 +208,7 @@ def reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+# recompute-ok: a recomputed collective moves its bytes again; counted again
 def permute(t: torch.Tensor, group, dst: int, src: int) -> torch.Tensor:
     """A collective permute: ``t`` goes to group rank ``dst``, and the
     result is what group rank ``src`` sent (every member sends a tensor of

@@ -81,6 +81,7 @@ def build_all(names=KERNELS) -> dict[str, dict]:
     return report
 
 
+# recompute-ok: builds at most once per process; the clock times the build
 def load(name: str) -> ctypes.CDLL:
     """Load the library of kernel ``name``, building it first if needed.
     Each wrapper loads once and keeps the handle."""
@@ -93,6 +94,7 @@ def load(name: str) -> ctypes.CDLL:
 _LAUNCH_LOCK = threading.Lock()
 
 
+# recompute-ok: a recomputed launch is a launch, and is counted
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` (a kernel's launch count, read and
     zeroed by callers as a plain attribute).  ``+= 1`` is a read, an add and

@@ -64,7 +64,7 @@ def _check(pool: torch.Tensor, hi: torch.Tensor, hj: torch.Tensor,
 
 
 def matrix_ingest_plain(pool: torch.Tensor, hi: torch.Tensor, hj: torch.Tensor,
-                        wt: torch.Tensor) -> torch.Tensor:
+                        wt: torch.Tensor) -> torch.Tensor:  # writes: 0
     """Plain PyTorch version: masked ``index_put_`` with accumulation."""
     d, p, w, _ = pool.shape
     ok = (hi >= 0) & (hi < w) & (hj >= 0) & (hj < w) & (wt != 0)[None]
@@ -84,7 +84,7 @@ def _launcher():
 
 
 def matrix_ingest(pool: torch.Tensor, hi: torch.Tensor, hj: torch.Tensor,
-                  wt: torch.Tensor) -> torch.Tensor:
+                  wt: torch.Tensor) -> torch.Tensor:  # writes: 0
     """Add every live slot into ``pool`` in place; returns ``pool``.
 
     A CUDA pool launches the kernel; a CPU pool takes the plain version.
@@ -179,7 +179,8 @@ def _check_edges(pools, a, b, src, dst, weight, route, part_class,
 
 def matrix_ingest_edges_plain(pools, a, b, src, dst, weight, *, route=None,
                               part_class=None, part_index=None, conn=None,
-                              overflow=None, capacity=None) -> None:
+                              overflow=None,
+                              capacity=None) -> None:  # writes: 0
     """Plain PyTorch version: ``route.lookup``, ``mix``, ``fastrange``, one
     accumulating ``index_put_`` per class and one for ``conn``; the tally
     from ``torch.bincount`` of the live partitions."""
@@ -227,7 +228,7 @@ def _edges_launcher():
 
 def matrix_ingest_edges(pools, a, b, src, dst, weight, *, route=None,
                         part_class=None, part_index=None, conn=None,
-                        overflow=None, capacity=None) -> None:
+                        overflow=None, capacity=None) -> None:  # writes: 0
     """Ingest one batch of raw edges in place, in one launch on the card.
 
     Args:

@@ -75,7 +75,7 @@ def _capacity(sk: KMatrixAccel, b: int, capacity: int | None,
 
 def kmatrix_accel_ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
                          capacity: int | None = None,
-                         block_b: int = 128) -> KMatrixAccel:
+                         block_b: int = 128) -> KMatrixAccel:  # writes: 0
     """Exact batched ingest, in place, in one ``matrix_ingest_edges``
     launch; returns ``sk``.
 
@@ -159,7 +159,7 @@ def dispatch_rectangles(sk: KMatrixAccel, batch: EdgeBatch,
 
 def rectangle_ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
                      capacity: int | None = None,
-                     block_b: int = 128) -> KMatrixAccel:
+                     block_b: int = 128) -> KMatrixAccel:  # writes: 0
     """The ingest as the TPU runs it, in place; returns ``sk``:
     ``dispatch_rectangles``, one ``matrix_ingest`` per non-empty class, an
     exact scatter for the overflow tail, a ``scatter_add`` into ``conn``.

@@ -1,5 +1,9 @@
 """Per-tenant background ingest worker (DESIGN.md §Runtime).
 
+# analysis: hot-path — the per-batch ingest loop; the no-pickle-hot-path
+# rule keeps serialization out of this module (checkpoints go through
+# repro_torch.checkpoint.store, never inline pickle).
+
 The JAX package's ``runtime/worker.py`` on PyTorch.  One ``IngestWorker``
 thread owns one tenant's write path end to end: it pulls ``QueueItem``s
 from the tenant's bounded queue, folds them into the registry's delta

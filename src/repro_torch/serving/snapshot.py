@@ -187,7 +187,7 @@ class SnapshotBuffer:
         host; by default the device counts the batch's weight>0 rows.
         """
         with self._lock:
-            self._mod.ingest(self._delta, batch)  # in place, private delta
+            self._mod.ingest(self._delta, batch)  # writes: 0 (the private delta)
             if count is None:
                 self._pending += (batch.weight > 0).sum()
             else:

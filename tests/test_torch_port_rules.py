@@ -1,6 +1,7 @@
 """The port's own rules: no JAX and no reference package in the port, the
 card as the default device, and launch counters that count only launches."""
 import ast
+import importlib
 import inspect
 import os
 import shutil
@@ -154,6 +155,51 @@ SHARDINGS_SLICE = ["launch/shardings.py", "launch/dryrun.py",
 @pytest.mark.parametrize("module", SHARDINGS_SLICE)
 def test_shardings_slice_modules_are_scanned(module):
     test_runtime_slice_modules_are_scanned(module)
+
+
+# the analysis gate and the examples
+ANALYSIS_SLICE = ["analysis/__init__.py", "analysis/__main__.py",
+                  "analysis/engine.py", "analysis/wire_schema.py",
+                  "analysis/pickle_rules.py", "analysis/locks.py",
+                  "analysis/trace_purity.py", "analysis/isolation.py",
+                  "analysis/witness.py", "examples/__init__.py",
+                  "examples/quickstart.py", "examples/sketch_queries.py",
+                  "examples/query_serving.py", "examples/background_ingest.py",
+                  "examples/train_lm.py"]
+EXAMPLES = ["quickstart", "sketch_queries", "query_serving",
+            "background_ingest", "train_lm"]
+
+
+@pytest.mark.parametrize("module", ANALYSIS_SLICE)
+def test_analysis_slice_modules_are_scanned(module):
+    test_runtime_slice_modules_are_scanned(module)
+
+
+def test_analysis_slice_holds_the_reference_modules():
+    """Every module of the JAX package's analysis has a port counterpart,
+    ``donation.py`` as ``isolation.py``; every JAX example but
+    ``distributed_sketch`` (``distributed/demo.py``) has one."""
+    ref = {p.name for p in (REPO / "src" / "repro" / "analysis").glob("*.py")}
+    port = {p.name for p in (REPO / "src" / "repro_torch" / "analysis").glob("*.py")}
+    assert port == ref - {"donation.py"} | {"isolation.py"}
+    ref_ex = {p.stem for p in (REPO / "examples").glob("*.py")}
+    assert ref_ex - set(EXAMPLES) == {"distributed_sketch"}
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_cuda_and_refuse_without_a_card(name):
+    module = importlib.import_module(f"repro_torch.examples.{name}")
+    assert "--device cpu" in module.__doc__
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the example runs on it")
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}"],
+        capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+    assert "--device cpu" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_the_dry_run_is_the_one_entry_point_off_the_card():
