@@ -54,6 +54,21 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      driver: the main path with ``--ckpt-dir --steps-per-ckpt 26``, then
      ``--resume`` from the batch-26 checkpoint; both must equal the
      uninterrupted phase-C sketch.
+  P. A file-fed stream (after D, from C's and F's results): phase C's
+     stream (421,578 edges) written as a SNAP edge list (``#`` header
+     lines, tab-separated ``src dst``) to a temporary file and read back by
+     ``FileStream(path, batch_size=8192)``: its 52 batches must equal the
+     generator's array for array.  The slice's flags then run from the file
+     through ``stream_ingest.run_pipeline`` on ``cuda``: the width-class
+     kMatrix must be ``same_state`` as phase C's sketch with the same ARE,
+     from 52 ``matrix_ingest_edges`` launches and no other; its
+     ``kmatrix_reachability`` must answer phase D's 10,000 pairs as phase D
+     did, from one ``reach_closure`` launch; the 512 KB gMatrix from the
+     file must be ``same_state`` as phase F's table, with the same ARE and
+     the same 10,000 edge estimates through ``matrix_lookup_edges`` (52
+     ingest and 2 lookup launches: the ARE's queries and the estimates).
+     Launch counts are zeroed before and read after each path and join the
+     kernels line as ``P file-fed ...`` paths.
   E. A profile of the main path's ingest loop: host time per batch for
      making, copying and issuing it, the device's busy and idle shares, and
      the top operations by device and host time, for the edge ingest and,
@@ -759,7 +774,8 @@ def _reach_path(smoke, label, sk, sk_cpu, n, answer):
     """Close ``sk``'s adjacency layers on the card and answer REACH_PAIRS
     pairs of vertex ids below ``n`` through ``answer(sketch, src, dst)``;
     hold closure and answers against the CPU plain version.  Returns the
-    path's reach_step and reach_closure launches."""
+    path's reach_step and reach_closure launches, its pairs and its answers
+    (on the host)."""
     torch = smoke.torch
     from repro_torch.core import queries as q
     from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
@@ -793,7 +809,7 @@ def _reach_path(smoke, label, sk, sk_cpu, n, answer):
     plain = q.build_closure(q.closure_layers(sk), backend="plain")
     smoke.check(torch.equal(plain, closure),
                 f"{label}: plain closure on cuda == kernel")
-    return launches
+    return {"launches": launches, "pairs": (qs, qd), "answers": answers.cpu()}
 
 
 def _checkpoint_round_trip(smoke, sl):
@@ -843,7 +859,7 @@ def phase_reach(smoke, sl, cmp):
         for dev in ("cuda", "cpu")}
     smoke.check(same_state(wide["cuda"], wide["cpu"]),
                 "gmatrix 2 MB: cuda table == cpu plain table")
-    launches = {
+    paths = {
         "kmatrix": _reach_path(
             smoke, "kmatrix conn", sl["run"]["sketch"], sl["cpu"]["sketch"],
             n, q.kmatrix_reachability),
@@ -855,7 +871,126 @@ def phase_reach(smoke, sl, cmp):
             q.reachability),
     }
     _checkpoint_round_trip(smoke, sl)
-    return {"launches": launches, "wide": wide["cuda"]}
+    return {"launches": {k: v["launches"] for k, v in paths.items()},
+            "paths": paths, "wide": wide["cuda"]}
+
+
+# ------------------------------------------------------------ phase P --
+
+def _write_snap(path, stream) -> None:
+    """``stream``'s edges as a SNAP edge list: ``#`` header lines, then one
+    tab-separated ``src dst`` pair per line."""
+    import numpy as np
+
+    src, dst, _ = stream.all_edges_numpy()
+    header = (f"Directed graph: {stream.spec.name}, the generator's matched "
+              f"stream\nNodes: {stream.spec.n_nodes} Edges: {len(src)}\n"
+              "FromNodeId\tToNodeId")
+    np.savetxt(path, np.stack([src, dst], axis=1), fmt="%d", delimiter="\t",
+               header=header, comments="# ")
+
+
+def phase_file(smoke, sl, cmp, reach):
+    """The paper pipeline fed from an edge-list file: phase C's stream
+    written as a SNAP file, read back by ``FileStream`` and driven through
+    ``stream_ingest.run_pipeline`` on the card for the width-class kMatrix
+    and the 512 KB gMatrix; both must equal phases C, D and F's results."""
+    torch = smoke.torch
+    from repro_torch.core import matrix_sketch as ms
+    from repro_torch.core import queries as q
+    from repro_torch.launch import stream_ingest
+    from repro_torch.streams import FileStream, sample_stream
+
+    t_phase = time.perf_counter()
+    stream = sl["run"]["stream"]
+    with tempfile.TemporaryDirectory(prefix="kmatrix_file_") as tmp:
+        path = Path(tmp) / "cit-HepPh.txt"
+        t0 = time.perf_counter()
+        _write_snap(path, stream)
+        t1 = time.perf_counter()
+        fs = FileStream(str(path), batch_size=8192)
+        t2 = time.perf_counter()
+        size = path.stat().st_size
+    print(f"  file: {size} bytes written in {t1 - t0:.3f}s, read by "
+          f"FileStream in {t2 - t1:.3f}s; spec {fs.spec}")
+    same = fs.num_batches == stream.num_batches == 52 and all(
+        a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        for i in range(fs.num_batches)
+        for a, b in zip(fs.batch_numpy(i), stream.batch_numpy(i)))
+    smoke.check(same and fs.spec.n_edges == STREAM_EDGES,
+                f"the file's {fs.num_batches} batches == the generator's, "
+                "array for array (421,578 edges)")
+
+    parser = stream_ingest.build_parser()
+    launches, timings = {}, {}
+    reset_launches()
+    run = stream_ingest.run_pipeline(
+        parser.parse_args([*SLICE_FLAGS, "--device", "cuda"]), fs)
+    launches["kmatrix"] = read_launches()
+    timings["kmatrix ingest_s"] = run["ingest_seconds"]
+    expect = {k: 0 for k in KERNEL_NAMES}
+    expect["matrix_ingest_edges"] = 52
+    smoke.check(launches["kmatrix"] == expect,
+                f"file-fed kmatrix: launches {launches['kmatrix']} == {expect}")
+    smoke.check(run["batches"] == 52 and run["n_edges"] == STREAM_EDGES,
+                "file-fed kmatrix: 52 batches, 421,578 edges")
+    smoke.check(type(run["sketch"]).__name__ == "KMatrixAccel"
+                and same_state(run["sketch"], sl["run"]["sketch"]),
+                "file-fed width-class kmatrix == phase C's sketch (same_state)")
+    smoke.check(run["ARE"] == sl["run"]["ARE"],
+                f"file-fed ARE == phase C's ({run['ARE']!r} vs "
+                f"{sl['run']['ARE']!r})")
+
+    seen = reach["paths"]["kmatrix"]
+    qs, qd = seen["pairs"]
+    reset_launches()
+    answers = q.kmatrix_reachability(run["sketch"], qs.cuda(), qd.cuda())
+    torch.cuda.synchronize()
+    launches["kmatrix reachability"] = read_launches()
+    expect = {k: 0 for k in KERNEL_NAMES}
+    expect["reach_closure"] = 1
+    smoke.check(launches["kmatrix reachability"] == expect,
+                f"file-fed kmatrix reachability: launches "
+                f"{launches['kmatrix reachability']} == {expect}")
+    smoke.check(torch.equal(answers.cpu(), seen["answers"]),
+                f"file-fed kmatrix: {REACH_PAIRS} reachability answers == "
+                f"phase D's ({int(seen['answers'].sum())} reachable)")
+
+    gm_f = cmp["runs"]["gmatrix"]
+    reset_launches()
+    gm = stream_ingest.run_pipeline(parser.parse_args(
+        [*SLICE_FLAGS, "--sketch", "gmatrix", "--device", "cuda"]), fs)
+    es, ed = (torch.as_tensor(x, device="cuda")
+              for x in sample_stream(fs, 10_000, seed=99)[:2])
+    est = ms.edge_freq(gm["sketch"], es, ed)
+    torch.cuda.synchronize()
+    launches["gmatrix"] = read_launches()
+    timings["gmatrix ingest_s"] = gm["ingest_seconds"]
+    expect = {k: 0 for k in KERNEL_NAMES}
+    expect["matrix_ingest_edges"] = 52
+    expect["matrix_lookup_edges"] = 2  # the ARE's queries, then est
+    smoke.check(launches["gmatrix"] == expect,
+                f"file-fed gmatrix: launches {launches['gmatrix']} == {expect}")
+    smoke.check(same_state(gm["sketch"], gm_f["sketch"]),
+                "file-fed gmatrix 512 KB table == phase F's (same_state)")
+    smoke.check(torch.equal(est, ms.edge_freq(gm_f["sketch"], es, ed)),
+                "file-fed gmatrix: 10,000 edge estimates through "
+                "matrix_lookup_edges == phase F's table's")
+    smoke.check(gm["ARE"] == gm_f["ARE"],
+                f"file-fed gmatrix ARE == phase F's ({gm['ARE']!r})")
+    seconds = time.perf_counter() - t_phase
+    print(f"  phase P: {seconds:.2f}s; "
+          f"{json.dumps({'launches': launches, **timings})}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def _count_phase_p(kernels: list, launches: dict) -> None:
+    """Phase P's paths in the kernels line (they run after D, the line is
+    built in B)."""
+    for row in kernels:
+        for path, counts in launches.items():
+            row["launches_by_path"][f"P file-fed {path}"] = counts[row["name"]]
+            row["launches"] += counts[row["name"]]
 
 
 def _profile_loop(smoke, stream, sk, ingest, label, show_top):
@@ -1285,17 +1420,36 @@ def _counting_ingests():
     return box, restore
 
 
+class _LoadClock:
+    """The load generator's ``time`` module, every ``perf_counter`` reading
+    it takes noted: the first is its start, and the first after a served
+    batch returns is that batch's end as the generator counts it."""
+
+    def __init__(self, real):
+        self._real, self.readings = real, []
+
+    def perf_counter(self) -> float:
+        t = self._real.perf_counter()
+        self.readings.append(t)
+        return t
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
 class _TimedEngine:
     """The engine as the load generator sees it, each served batch's host
-    time noted (start, end, requests)."""
+    time noted (start, end, requests, the index of the generator's next
+    clock reading)."""
 
-    def __init__(self, engine, log: list):
-        self._engine, self._log = engine, log
+    def __init__(self, engine, log: list, clock: _LoadClock):
+        self._engine, self._log, self._clock = engine, log, clock
 
     def execute(self, snapshot, batch):
         t = time.perf_counter()
         out = self._engine.execute(snapshot, batch)
-        self._log.append((t, time.perf_counter(), len(batch)))
+        self._log.append((t, time.perf_counter(), len(batch),
+                          len(self._clock.readings)))
         return out
 
     def __getattr__(self, name):
@@ -1303,19 +1457,24 @@ class _TimedEngine:
 
 
 def _timeline():
-    """Note the served batches (through ``query_serve.run_load``) and when
-    each stream pump finished; returns the box and the restore function."""
+    """Note the served batches (through ``query_serve.run_load``), the load
+    generator's own clock readings, and when each stream pump finished;
+    returns the box and the restore function."""
     from repro_torch.launch import query_serve
     from repro_torch.runtime.supervisor import StreamPump
+    from repro_torch.serving import loadgen
 
-    box = {"batches": [], "pumps_done": [], "mean_ms": None}
+    box = {"batches": [], "pumps_done": [], "clock": None}
     orig_load, orig_pump = query_serve.run_load, StreamPump.run
 
     def run_load(args, engine, *rest, **kw):
-        report, extras = orig_load(args, _TimedEngine(engine, box["batches"]),
-                                   *rest, **kw)
-        box["mean_ms"] = report.mean_ms  # the load generator's own mean
-        return report, extras
+        clock = box["clock"] = _LoadClock(loadgen.time)
+        loadgen.time = clock
+        try:
+            return orig_load(args, _TimedEngine(engine, box["batches"], clock),
+                             *rest, **kw)
+        finally:
+            loadgen.time = clock._real
 
     def pump_run(self):
         try:
@@ -1331,24 +1490,25 @@ def _timeline():
     return box, restore
 
 
-def _latency_split(batches, qps, ingest_done, pumps_done, mean_ms) -> dict:
+def _latency_split(batches, qps, ingest_done, pumps_done, clock) -> dict:
     """Each request's latency from the served batches (arrival i / qps from
     the load generator's start), split at the last buffer ingest: the
     requests that arrived while the stream was still being ingested, and
     those after; and p99 per arrival window.
 
-    The load generator's start ``t0`` is its own clock's zero: it gives
-    request i the latency (its batch's end - t0) - i / qps, so ``t0`` is
-    the mean of (end - arrival) less its mean latency ``mean_ms``.  The
-    first batch starts after ``t0``, by more than a millisecond when another
-    thread holds the GIL as the load starts (a process or in-process socket
-    worker encoding its first frames), so it cannot stand in for it."""
+    The start and each batch's end are the load generator's own clock
+    readings (``_LoadClock``), so a request's latency is the one it
+    reported.  The engine's own return time cannot stand in for the end:
+    another thread may hold the GIL for milliseconds before the generator
+    reads its clock (a process or in-process socket worker encoding
+    frames)."""
     import numpy as np
 
-    ends = np.repeat([b[1] for b in batches], [b[2] for b in batches])
-    arrival = np.arange(ends.size) / qps
-    t0 = float(np.mean(ends - arrival)) - mean_ms / 1e3
-    lat = (ends - t0 - arrival) * 1e3
+    t0 = clock.readings[0]
+    ends = np.repeat([clock.readings[b[3]] for b in batches],
+                     [b[2] for b in batches])
+    arrival = np.arange(ends.size) * (1.0 / qps)
+    lat = ((ends - t0) - arrival) * 1e3
     cut = ingest_done - t0
 
     def pcts(x):
@@ -1417,7 +1577,7 @@ def _bg_run(smoke, label, flags):
           f"included (host clock per group, read-back included; sharded: "
           f"one group per shard): {json.dumps(dict(sorted(by_family.items())))}")
     split = _latency_split(timeline["batches"], args.qps, ingests["last"],
-                           timeline["pumps_done"], timeline["mean_ms"])
+                           timeline["pumps_done"], timeline["clock"])
     print(f"  {label}: served batches and latency against the ingest "
           f"(seconds from the load generator's start): {json.dumps(split)}")
     kind = args.sketch
@@ -4394,6 +4554,8 @@ def main() -> int:
            if sl else None)
     reach = (smoke.phase("D. reachability", phase_reach, smoke, sl, cmp)
              if cmp else None)
+    filed = (smoke.phase("P. a file-fed stream", phase_file, smoke, sl, cmp,
+                         reach) if reach is not None else None)
     if reach is not None:
         smoke.phase("E. where the ingest time goes", phase_profile, smoke, sl)
     serve = (smoke.phase("H. online serving", phase_serving, smoke, card)
@@ -4411,11 +4573,13 @@ def main() -> int:
                if reach is not None and fm is not None and serve is not None
                and bg is not None and net is not None and train is not None
                else None)
+    if kernels and filed:
+        _count_phase_p(kernels, filed["launches"])
     # phase O holds its fronts against phase H's replays (256 KB each)
     replays = {k: serve[k]["replays"] for k in SERVE_KINDS} if serve else None
     # the GNN cells want the card's memory: drop what the earlier phases
     # hold (phase B's inputs among it) first
-    del sl, cmp, reach, fm, serve, bg, net, train
+    del sl, cmp, reach, filed, fm, serve, bg, net, train
     if card:
         smoke.phase("M. GNNs", phase_gnn, smoke, card)
         mesh = smoke.phase("N. the shardings slice", phase_mesh, smoke, card)

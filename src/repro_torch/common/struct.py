@@ -37,3 +37,25 @@ def tensor_dataclass(cls: type[T]) -> type[T]:
 
     cls.replace = replace  # type: ignore[attr-defined]
     return cls
+
+
+def tree_size_bytes(tree: Any) -> int:
+    """Total bytes of the tensors (and numpy arrays) in ``tree``: a tensor
+    dataclass (its static fields hold none), or a dict, list or tuple of
+    them, nested to any depth.  The bytes are those the tensors hold: the
+    port keeps hash parameters as int64, so a sketch's ``HashFamily``
+    counts 8 bytes a value where the JAX package's uint32 counts 4."""
+    if tree is None:
+        return 0
+    if hasattr(tree, "element_size"):  # a tensor
+        return tree.numel() * tree.element_size()
+    if hasattr(tree, "nbytes"):  # a numpy array
+        return int(tree.nbytes)
+    if isinstance(tree, dict):
+        return sum(tree_size_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_size_bytes(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(tree_size_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree) if not is_static(f))
+    return 0

@@ -16,6 +16,12 @@ from repro_torch.core.gsketch import GSketch
 from repro_torch.core.matrix_sketch import MatrixSketch
 from repro_torch.core.kmatrix import KMatrix
 from repro_torch.core.kmatrix_accel import KMatrixAccel, sketch_backend
+from repro_torch.core.partitioning import (
+    PartitionPlan,
+    ShardPlan,
+    plan_partitions,
+    total_expected_error,
+)
 
 __all__ = [
     "EdgeBatch",
@@ -27,4 +33,8 @@ __all__ = [
     "KMatrix",
     "KMatrixAccel",
     "sketch_backend",
+    "PartitionPlan",
+    "ShardPlan",
+    "plan_partitions",
+    "total_expected_error",
 ]

@@ -246,6 +246,11 @@ def plan_partitions(
     )
 
 
+def total_expected_error(plan: PartitionPlan) -> float:
+    """The plan's modelled error: the sum of its partitions' Eq. (5)."""
+    return float(sum(p.expected_error for p in plan.partitions))
+
+
 def plan_partitions_banded(
     stats: VertexStats,
     total_width: int,
@@ -390,6 +395,13 @@ def plan_partitions_auto(
     return best
 
 
+PARTITIONERS = {
+    "greedy": plan_partitions,  # paper-faithful Eq. 8 recursion
+    "banded": plan_partitions_banded,  # beyond-paper sqrt-G bands
+    "auto": plan_partitions_auto,  # beyond-paper two-term model selection
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
     """Deterministic hash-band routing of edges to ``n_shards`` sketch shards.
@@ -457,16 +469,11 @@ def plan_for(
     ``min_width`` at 16: below that its equal binary splits produce slabs
     too small to be worth the routing entry.
     """
-    if partitioner == "greedy":
-        return plan_partitions(
-            stats, total_width, square=square, max_partitions=max_partitions,
-            min_width=max(min_width, 16), outlier_frac=outlier_frac)
-    if partitioner == "banded":
-        return plan_partitions_banded(
-            stats, total_width, square=square, n_bands=n_bands,
-            min_width=min_width, outlier_frac=outlier_frac)
-    if partitioner == "auto":
-        return plan_partitions_auto(
-            stats, total_width, square=square, min_width=min_width,
-            outlier_frac=outlier_frac)
-    raise ValueError(f"unknown partitioner {partitioner!r}")
+    if partitioner not in PARTITIONERS:
+        raise ValueError(f"unknown partitioner {partitioner!r}")
+    knobs = {"greedy": dict(max_partitions=max_partitions,
+                            min_width=max(min_width, 16)),
+             "banded": dict(n_bands=n_bands, min_width=min_width),
+             "auto": dict(min_width=min_width)}[partitioner]
+    return PARTITIONERS[partitioner](stats, total_width, square=square,
+                                     outlier_frac=outlier_frac, **knobs)

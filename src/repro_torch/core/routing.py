@@ -23,6 +23,11 @@ class RouteTable:
     n_partitions: int = static_field()
     max_width: int = static_field()
 
+    @property
+    def routed_bytes(self) -> int:
+        """Bytes of the routing table proper: its int32 keys and parts."""
+        return (self.keys.numel() + self.part.numel()) * 4
+
     def lookup(self, v: torch.Tensor) -> torch.Tensor:
         """Partition id (int32) for each vertex in ``v`` (any shape)."""
         v = v.to(torch.int32)

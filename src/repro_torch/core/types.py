@@ -35,6 +35,19 @@ class EdgeBatch:
 
         return EdgeBatch(src=put(src), dst=put(dst), weight=put(weight))
 
+    @staticmethod
+    def pad_to(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,
+               size: int, *, device="cuda") -> "EdgeBatch":
+        """The ``n <= size`` edges followed by zero-weight padding: a batch
+        of ``size`` slots on ``device``."""
+        n = src.shape[0]
+        if n > size:
+            raise ValueError(f"{n} edges do not fit a batch of {size}")
+        pad = np.zeros(size - n, np.int32)
+        return EdgeBatch.from_numpy(
+            np.concatenate([src, pad]), np.concatenate([dst, pad]),
+            np.concatenate([weight.astype(np.int32), pad]), device=device)
+
 
 @tensor_dataclass
 class VertexStats:

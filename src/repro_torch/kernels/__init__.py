@@ -21,7 +21,9 @@ Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``).  A CUDA tensor launches the kernel;
 a CPU tensor takes the plain version.  ``build`` compiles the sources with
 ``nvcc`` at first use; ``csrc/sketch_addr.cuh`` holds the hashing and
-routing that the two edge kernels share.
+routing that the two edge kernels share.  ``ops`` (the bindings to sketch
+state) is loaded on first use: it imports ``repro_torch.core``, whose
+sketches import the wrappers here.
 """
 from repro_torch.kernels.embedding_bag import (
     embedding_bag,
@@ -56,4 +58,13 @@ __all__ = ["embedding_bag", "embedding_bag_backward",
            "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_edges",
            "matrix_lookup_edges_plain", "matrix_lookup_plain",
            "reach_closure", "reach_closure_plain", "reach_step",
-           "reach_step_plain"]
+           "reach_step_plain", "ops"]
+
+
+def __getattr__(name: str):
+    if name != "ops":
+        raise AttributeError(
+            f"module 'repro_torch.kernels' has no attribute {name!r}")
+    import importlib
+
+    return importlib.import_module("repro_torch.kernels.ops")

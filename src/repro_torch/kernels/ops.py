@@ -20,8 +20,9 @@
 * ``accel_reach_closure``: boolean closure of every layer: one
   ``reach_closure`` launch where a layer fits one block's shared memory,
   else one ``reach_step`` launch per squaring.
-* ``embedding_bag``: re-exported, as the JAX package's ``ops`` does; the
-  FM (``models/recsys/fm.py``) is its caller.
+* ``embedding_bag`` and ``kmatrix_accel_edge_freq`` (the width-class
+  kMatrix's point queries, gathers with no kernel): re-exported, as the JAX
+  package's ``ops`` does; the FM (``models/recsys/fm.py``) calls the bag.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.common.hashing import fastrange
 from repro_torch.core.kmatrix_accel import KMatrixAccel, dispatch_capacity
+from repro_torch.core.kmatrix_accel import edge_freq as kmatrix_accel_edge_freq
 from repro_torch.core.matrix_sketch import edge_freq as accel_matrix_edge_freq
 from repro_torch.core.matrix_sketch import ingest as accel_matrix_ingest
 from repro_torch.core.types import EdgeBatch
@@ -45,7 +47,8 @@ from repro_torch.kernels.reach_closure import (
 
 __all__ = ["accel_matrix_edge_freq", "accel_matrix_ingest",
            "accel_reach_closure", "dispatch_rectangles", "embedding_bag",
-           "kmatrix_accel_ingest", "rectangle_ingest"]
+           "kmatrix_accel_edge_freq", "kmatrix_accel_ingest",
+           "rectangle_ingest"]
 
 
 def accel_reach_closure(table: torch.Tensor, *, n_steps: int | None = None,

@@ -10,6 +10,10 @@ of the paper's comparison, with periodic checkpoints and resume:
       [--ckpt-dir DIR --steps-per-ckpt 16 [--resume]] [--scale 0.25] \
       [--device cuda]
 
+An edge list on disk goes through the same pipeline from Python, as
+``run_pipeline(build_parser().parse_args([...]), FileStream(path))``; like
+the JAX package's driver, the command line reads no file.
+
 Checkpoints use the JAX package's layout (``repro_torch.checkpoint.store``),
 so either driver resumes from the other's.
 
@@ -149,13 +153,20 @@ def require_device(device: str) -> torch.device:
 
 
 def inline_main(args) -> dict:
-    """Run the pipeline, print its lines, and return the run's results:
-    ``sketch``, ``module``, ``stream``, ``ARE`` (unrounded), ``n_edges``
-    and ``batches`` ingested by this run (from the resumed offset on), and
-    ``ingest_seconds``."""
-    device = require_device(args.device)
+    """Run the pipeline on ``--dataset``'s generated stream: see
+    :func:`run_pipeline`."""
     stream = make_stream(args.dataset, batch_size=args.batch_size,
                          seed=args.seed, scale=args.scale)
+    return run_pipeline(args, stream)
+
+
+def run_pipeline(args, stream) -> dict:
+    """The pipeline on ``stream`` (a ``SyntheticStream``, or a
+    ``FileStream`` of an edge list on disk) at ``args``' other flags: print
+    its lines, and return the run's results: ``sketch``, ``module``,
+    ``stream``, ``ARE`` (unrounded), ``n_edges`` and ``batches`` ingested
+    by this run (from the resumed offset on), and ``ingest_seconds``."""
+    device = require_device(args.device)
     print(f"stream: {stream.spec.name} nodes={stream.spec.n_nodes} "
           f"edges={stream.spec.n_edges} batches={stream.num_batches}")
 

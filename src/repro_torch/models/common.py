@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+Params = dict  # nested dict of tensor leaves
+
 
 def uniform_init(generator: torch.Generator, shape, scale: float,
                  dtype=torch.float32, device="cuda") -> torch.Tensor:

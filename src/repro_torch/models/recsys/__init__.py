@@ -1,1 +1,4 @@
 """Recommendation models: the Factorization Machine."""
+from repro_torch.models.recsys import fm
+
+__all__ = ["fm"]

@@ -208,6 +208,14 @@ def forward(cfg: FMConfig, params, ids: torch.Tensor, mesh=None
     return _score(cfg, params, ids, mesh)[0]
 
 
+def forward_with_kernel(cfg: FMConfig, params, ids: torch.Tensor
+                        ) -> torch.Tensor:
+    """The JAX package's name for the forward through the bag kernel.  The
+    port's ``forward`` is that path already (three ``embedding_bag``
+    launches on a CUDA tensor), so this is ``forward`` without a mesh."""
+    return forward(cfg, params, ids)
+
+
 def bce_loss(cfg: FMConfig, params, ids: torch.Tensor, labels: torch.Tensor,
              mesh=None) -> torch.Tensor:
     """The batch's mean BCE; with ``mesh``, this rank's share of the whole

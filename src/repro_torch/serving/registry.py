@@ -27,7 +27,8 @@ from repro_torch.core import countmin, gsketch, kmatrix, kmatrix_accel, matrix_s
 from repro_torch.core.countmin import CountMin
 from repro_torch.core.gsketch import GSketch
 from repro_torch.core.kmatrix import KMatrix
-from repro_torch.core.kmatrix_accel import KMatrixAccel, sketch_backend
+from repro_torch.core.kmatrix_accel import KMatrixAccel
+from repro_torch.core.kmatrix_accel import sketch_backend as resolve_sketch_backend
 from repro_torch.core.matrix_sketch import MatrixSketch
 from repro_torch.core.types import vertex_stats_from_sample
 from repro_torch.serving.snapshot import Snapshot, SnapshotBuffer
@@ -45,7 +46,7 @@ def build_sketch(name: str, budget: int, stats, depth: int, seed: int,
     default ``min_width`` (``partitioner`` applies to kMatrix only), and
     ``tcm`` and ``gmatrix`` differ only in their label, so the same seed
     gives them identical tables.  For ``kmatrix`` the layout is a backend
-    choice (``sketch_backend``): ``width_class`` (the default) builds
+    choice (``resolve_sketch_backend``): ``width_class`` (the default) builds
     ``KMatrixAccel``, whose ingest runs the ``matrix_ingest`` kernel;
     ``flat`` the flat-pool ``KMatrix``.
     """
@@ -60,7 +61,7 @@ def build_sketch(name: str, budget: int, stats, depth: int, seed: int,
     if name == "gsketch":
         return GSketch.create(bytes_budget=budget, stats=stats, depth=depth,
                               seed=seed, device=device), gsketch
-    if sketch_backend(backend) == "width_class":
+    if resolve_sketch_backend(backend) == "width_class":
         return KMatrixAccel.create(
             bytes_budget=budget, stats=stats, depth=depth, seed=seed,
             partitioner=partitioner, device=device), kmatrix_accel
@@ -200,7 +201,7 @@ class SketchRegistry:
         # resolved once at registry build, not per tenant open: a registry
         # whose tenants straddle two layouts would break merge/restore
         # interchange assumptions downstream
-        self.sketch_backend = kmatrix_accel.sketch_backend(sketch_backend)
+        self.sketch_backend = resolve_sketch_backend(sketch_backend)
         self.device = str(device)
         self._tenants: dict[TenantKey, Tenant] = {}
         self._sharded: dict = {}  # (key, n_shards, shard_seed) -> ShardedTenant

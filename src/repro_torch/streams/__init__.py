@@ -1,5 +1,6 @@
 from repro_torch.streams.generators import (
     DATASETS,
+    FileStream,
     StreamSpec,
     SyntheticStream,
     make_stream,
@@ -8,6 +9,7 @@ from repro_torch.streams.reservoir import Reservoir, sample_stream
 
 __all__ = [
     "DATASETS",
+    "FileStream",
     "StreamSpec",
     "SyntheticStream",
     "make_stream",

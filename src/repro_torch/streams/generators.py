@@ -3,6 +3,9 @@
 The paper benchmarks on unicorn-wget, email-EuAll and cit-HepPh; those files
 are not available offline, so the streams are *statistically matched*:
 same node/edge counts, and power-law out/in-degree with per-dataset skew.
+A real edge list on disk (a SNAP file's ``src dst`` lines with ``#``
+comments) is read by ``FileStream``, which batches and replays as the
+generated streams do.
 
 Replayability contract: batch ``i`` of a stream is a pure function of
 ``(seed, i)`` — a Philox generator keyed with the batch index — so seeking to
@@ -12,6 +15,8 @@ a device.
 from __future__ import annotations
 
 import dataclasses
+import os
+import warnings
 from typing import Iterator
 
 import numpy as np
@@ -36,6 +41,19 @@ UNICORN_WGET = StreamSpec("unicorn-wget", 17_778, 277_972, 1.2, 1.1)
 EMAIL_EUALL = StreamSpec("email-EuAll", 265_214, 420_045, 1.35, 1.25)
 CIT_HEPPH = StreamSpec("cit-HepPh", 34_546, 421_578, 1.05, 1.3)
 DATASETS = {s.name: s for s in (UNICORN_WGET, EMAIL_EUALL, CIT_HEPPH)}
+
+
+def _padded(src: np.ndarray, dst: np.ndarray, size: int
+            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(src, dst, weight) int32[size]: the edges with weight 1, then
+    zero-weight padding up to ``size``."""
+    n = len(src)
+    weight = np.ones(n, np.int32)
+    if n < size:
+        pad = np.zeros(size - n, np.int32)
+        src, dst = np.concatenate([src, pad]), np.concatenate([dst, pad])
+        weight = np.concatenate([weight, pad])
+    return src.astype(np.int32), dst.astype(np.int32), weight
 
 
 def _zipf_cdf(n: int, alpha: float) -> np.ndarray:
@@ -77,16 +95,16 @@ class SyntheticStream:
         if not self.spec.self_loops:
             collide = src == dst
             dst = np.where(collide, (dst + 1) % self.spec.n_nodes, dst)
-        weight = np.ones(n, np.int32)
-        if n < self.batch_size:
-            pad = self.batch_size - n
-            src = np.concatenate([src, np.zeros(pad, np.int32)])
-            dst = np.concatenate([dst, np.zeros(pad, np.int32)])
-            weight = np.concatenate([weight, np.zeros(pad, np.int32)])
-        return src.astype(np.int32), dst.astype(np.int32), weight
+        return _padded(src, dst, self.batch_size)
 
     def batch(self, i: int, *, device="cuda") -> EdgeBatch:
         return EdgeBatch.from_numpy(*self.batch_numpy(i), device=device)
+
+    def __iter__(self) -> Iterator[EdgeBatch]:
+        """Every batch in order, on the card (``iter_from`` takes a
+        device)."""
+        for i in range(self.num_batches):
+            yield self.batch(i)
 
     def iter_from(self, offset: int, *,
                   device="cuda") -> Iterator[tuple[int, EdgeBatch]]:
@@ -103,6 +121,74 @@ class SyntheticStream:
         w = np.concatenate([p[2] for p in parts])
         keep = w > 0
         return src[keep], dst[keep], w[keep]
+
+
+class FileStream:
+    """Edge-list file stream: one ``src dst`` pair per line, ``#`` comments
+    (a SNAP file; tabs or spaces, further columns ignored).  Loaded once
+    host-side; batching and replay as ``SyntheticStream``'s: weights 1, the
+    last batch zero-padded, batch ``i`` the file's edges ``i * batch_size``
+    on.  ``spec.n_nodes`` is the largest id + 1, its skews 0.
+
+    Ids must lie in [0, 2^31), the int32 range the sketches hash: the JAX
+    package's ``FileStream`` wraps a larger id to a negative one and keeps
+    a negative id, where this one raises ``ValueError`` naming the value.
+    A file with no edges raises ``ValueError`` too.
+    """
+
+    def __init__(self, path: str, *, batch_size: int = 8192,
+                 name: str | None = None):
+        with warnings.catch_warnings():  # an empty file: refused below
+            warnings.simplefilter("ignore", UserWarning)
+            edges = np.loadtxt(path, dtype=np.int64, comments="#", ndmin=2)
+        if edges.shape[0] == 0:
+            raise ValueError(f"{path}: no edges")
+        if edges.shape[1] < 2:
+            raise ValueError(f"{path}: a line holds one id, not 'src dst'")
+        ids = edges[:, :2]
+        outside = (ids < 0) | (ids > np.iinfo(np.int32).max)
+        if outside.any():
+            row = int(np.argmax(outside.any(axis=1)))
+            value = int(ids[outside][0])
+            raise ValueError(f"{path}: vertex id {value} on edge {row} lies "
+                             "outside [0, 2^31)")
+        self._src = ids[:, 0].astype(np.int32)
+        self._dst = ids[:, 1].astype(np.int32)
+        self.batch_size = batch_size
+        n_nodes = int(max(self._src.max(), self._dst.max())) + 1
+        self.spec = StreamSpec(name or os.path.basename(path), n_nodes,
+                               len(self._src), 0.0, 0.0)
+
+    @property
+    def num_batches(self) -> int:
+        return -(-self.spec.n_edges // self.batch_size)
+
+    def batch_numpy(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(src, dst, weight) for batch ``i``; final batch zero-padded."""
+        if not (0 <= i < self.num_batches):
+            raise IndexError(i)
+        lo = i * self.batch_size
+        hi = min(lo + self.batch_size, self.spec.n_edges)
+        return _padded(self._src[lo:hi], self._dst[lo:hi], self.batch_size)
+
+    def batch(self, i: int, *, device="cuda") -> EdgeBatch:
+        return EdgeBatch.from_numpy(*self.batch_numpy(i), device=device)
+
+    def __iter__(self) -> Iterator[EdgeBatch]:
+        """Every batch in order, on the card (``iter_from`` takes a
+        device)."""
+        for i in range(self.num_batches):
+            yield self.batch(i)
+
+    def iter_from(self, offset: int, *,
+                  device="cuda") -> Iterator[tuple[int, EdgeBatch]]:
+        """``(i, batch i)`` on ``device`` for every i >= offset."""
+        for i in range(offset, self.num_batches):
+            yield i, self.batch(i, device=device)
+
+    def all_edges_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The file's edges host-side, weights 1 (evaluation oracles)."""
+        return self._src, self._dst, np.ones(len(self._src), np.int32)
 
 
 def make_stream(name: str, *, batch_size: int = 8192, seed: int = 0,

@@ -81,6 +81,22 @@ def test_forward_matches_jax_forward_and_kernel_path(cfg):
     np.testing.assert_array_equal(params(torch.as_tensor(ids)).numpy(), got)
 
 
+@pytest.mark.parametrize("cfg", [CFG, CFG39], ids=["7_fields", "39_fields"])
+def test_forward_with_kernel_matches_jax_forward_with_kernel(cfg):
+    """The reference's name for the bag-kernel forward: on the port it is
+    ``forward`` (three bags; plain versions on the CPU)."""
+    jcfg, jparams, params = _both(cfg, seed=2)
+    ids = _ids(16, cfg.n_fields, 4)
+    embedding_bag.launches = 0
+    got = tfm.forward_with_kernel(cfg, params, torch.as_tensor(ids)).numpy()
+    assert embedding_bag.launches == 0
+    np.testing.assert_array_equal(
+        got, tfm.forward(cfg, params, torch.as_tensor(ids)).numpy())
+    expect = np.asarray(jfm.forward_with_kernel(jcfg, jparams, jnp.asarray(ids),
+                                                interpret=True))
+    np.testing.assert_allclose(got, expect, rtol=RTOL, atol=ATOL)
+
+
 def test_flat_ids_equal_jax_including_negative_ids():
     ids = _ids(8, CFG.n_fields, 3)
     ids[0] = -ids[0]  # floor mod on both sides

@@ -54,7 +54,7 @@ from repro_torch.serving import ShardStreamView
 from repro_torch.serving import WorkloadMix
 from repro_torch.serving.registry import build_sketch
 from repro_torch.streams import make_stream
-from repro_torch.streams.generators import SyntheticStream
+from repro_torch.streams.generators import FileStream, SyntheticStream
 
 from repro_torch.configs import registry as tregistry
 from repro_torch.models.gnn import (equiformer_v2, gatedgcn, graph as tgraph,
@@ -172,6 +172,21 @@ EXAMPLES = ["quickstart", "sketch_queries", "query_serving",
 
 @pytest.mark.parametrize("module", ANALYSIS_SLICE)
 def test_analysis_slice_modules_are_scanned(module):
+    test_runtime_slice_modules_are_scanned(module)
+
+
+# the reference's last public surface: FileStream, the core helpers, the
+# aliases and the driver's stream-taking pipeline
+SURFACE_SLICE = ["streams/generators.py", "streams/__init__.py",
+                 "core/types.py", "core/routing.py", "core/partitioning.py",
+                 "core/__init__.py", "common/struct.py", "common/__init__.py",
+                 "kernels/ops.py", "kernels/__init__.py", "models/common.py",
+                 "models/recsys/fm.py", "models/recsys/__init__.py",
+                 "serving/registry.py", "launch/stream_ingest.py"]
+
+
+@pytest.mark.parametrize("module", SURFACE_SLICE)
+def test_surface_slice_modules_are_scanned(module):
     test_runtime_slice_modules_are_scanned(module)
 
 
@@ -300,6 +315,7 @@ def test_only_items_12_and_13b_stay_refused_by_query_serve():
     KMatrix.create, KMatrixAccel.create, HashFamily.create,
     EdgeBatch.from_numpy, build_sketch, route_table_from_plan,
     interop.import_state, SyntheticStream.batch, MatrixSketch.create,
+    FileStream.batch, FileStream.iter_from, EdgeBatch.pad_to,
     CountMin.create, GSketch.create, SyntheticStream.iter_from,
     tq.heavy_nodes, tfm.init_params, build_fm_cell, interop.fm_params_from_jax,
     SketchRegistry.__init__, interop.snapshot_state_from_jax,
