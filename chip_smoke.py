@@ -50,7 +50,13 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      launch, and of a gMatrix table at 2 MB (w = 273, wider than one
      block's shared memory holds) through ``reach_step``, one launch per
      squaring; 10,000 sampled pairs each, compared with the CPU plain
-     closure.  Then a checkpoint round trip on the card through the
+     closure.  Those three answer "reachable" to every pair, so two sparse
+     sets follow: empty twins of the kMatrix (w = 43, one ``reach_closure``)
+     and of the 2 MB gMatrix (w = 273, the ``reach_step`` cascade) fed only
+     the first 300 and 4,000 edges of the stream's first batch, on the card
+     and on the CPU, each with both answers at least 1,000 of the 10,000
+     pairs and answers and closure equal to the CPU plain version's.  Then
+     a checkpoint round trip on the card through the
      driver: the main path with ``--ckpt-dir --steps-per-ckpt 26``, then
      ``--resume`` from the batch-26 checkpoint; both must equal the
      uninterrupted phase-C sketch.
@@ -141,7 +147,13 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      shed and answer epoch beside phase H's; 1,000 answers over the wire
      equal to the direct ones on the final snapshot), 3 drains at each
      K = 1, 2, 4 through ``measure_sharded_ingest(backend="process")``,
-     and the hub's publish bytes, delta against full.  No kernel may be
+     and the hub's publish bytes, delta against full.  Every worker
+     process (the process and socket children, the listen host, the
+     drains' children) leaves its kernel launches and its buffer's ingest
+     calls in a file when it stops (``runtime/backend.py``'s
+     ``LAUNCH_REPORT_ENV``, a directory per run): each must have launched
+     ``matrix_ingest_edges`` at least once for each batch it ingested, and
+     the launches join the kernels line.  No kernel may be
      built during the phase: the parent built them, the workers load them.
      The kMatrix ``--serve`` front-end is scraped once, after its load and
      before it stops, by ``python -m repro_torch.obs.dashboard --connect
@@ -160,8 +172,9 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      the layer-0 mass of the summed pools.  Prints the backend, each
      mode's ingest wall per batch and M edges/s (host clock, one
      synchronise at the end), the collective bytes per batch, the drops,
-     the ARE and the card's memory per rank.  No kernel runs in phase K:
-     the flat kMatrix ingests with ``index_put_``.
+     the ARE and the card's memory per rank; after each mesh this
+     process's allocated memory is back at its level before the ranks.  No
+     kernel runs in phase K: the flat kMatrix ingests with ``index_put_``.
   L. Training: the FM ``train_batch`` cell at full width through
      ``build_fm_cell`` (65,536 x 39 ids and {0, 1} labels from a numpy
      seed, the 10,000,384 x 10 table, AdamW lr 1e-3 with 100 warm-up
@@ -270,7 +283,10 @@ Phases (any failure exits nonzero without the final ``ok`` line):
      largest |g|, FM logits within rtol 1e-5, atol 1e-6.  Per model: the
      step time (first and second step), each rank's peak memory and
      ``collective_stats()`` by kind (calls, bytes, seconds, host-carried
-     share).
+     share).  The blocks reach the ranks by CUDA IPC, and ``run_ranks``
+     has each rank release them before it exits: after each model this
+     process's allocated memory is back at its level before the model's
+     blocks were built.
   O. The analysis gate and the examples, all started at once in child
      processes: ``python -m repro_torch.analysis --gate`` must exit 0;
      three ``query_serve`` runs at phase I's flags on ``cuda``, each under
@@ -293,9 +309,9 @@ Phases (any failure exits nonzero without the final ``ok`` line):
 The last lines are one ``{"kernels": [...]}`` JSON object and then
 ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is summed
 over the paths that run it, each path counted from zero just before it
-runs (``launches_by_path``), in this process and, from their returns,
-phase N2's ranks and phase O's witnessed children: the launches of phase
-J's worker child processes and listen host are not counted there.
+runs (``launches_by_path``), in every process that launches a kernel:
+this process; phase J's worker processes and phase O's witnessed children,
+from their reports; phase N2's ranks, from their returns.
 """
 from __future__ import annotations
 
@@ -323,6 +339,10 @@ SLICE_FLAGS = ["--dataset", "cit-HepPh", "--scale", "1.0", "--budget-kb", "512",
                "--depth", "7", "--batch-size", "8192", "--partitioner", "banded",
                "--eval-queries", "10000", "--sketch-backend", "width_class"]
 REACH_PAIRS = 10_000
+# phase D's sparse sets: the first edges of the stream's first batch, chosen
+# on the CPU so that about half of the 10,000 pairs are reachable (300:
+# 4,356; 4,000: 4,965), each fed to an empty twin of a phase-D sketch
+REACH_PREFIX = {"kmatrix": 300, "gmatrix": 4000}
 # phase D's third closure: a gMatrix table too wide for one block (w = 273)
 WIDE_REACH_FLAGS = [*SLICE_FLAGS, "--sketch", "gmatrix", "--budget-kb", "2048"]
 FM_CELLS = ("serve_p99", "serve_bulk", "retrieval_cand")
@@ -569,6 +589,11 @@ class Smoke:
 KERNEL_NAMES = ("matrix_ingest", "matrix_ingest_edges", "matrix_lookup",
                 "matrix_lookup_edges", "reach_step", "reach_closure",
                 "embedding_bag", "embedding_bag_backward")
+LAUNCHES_COUNTED_IN = (
+    "every process of the run that launches a kernel: this process; phase "
+    "J's worker child processes and listen host, and phase O's witnessed "
+    "query_serve children, from their reports; phase N2's four ranks, from "
+    "their returns")
 
 
 def _wrappers() -> dict:
@@ -585,7 +610,9 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count (just after a path)."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    from repro_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def same_state(a, b) -> bool:
@@ -812,6 +839,27 @@ def _reach_path(smoke, label, sk, sk_cpu, n, answer):
     return {"launches": launches, "pairs": (qs, qd), "answers": answers.cpu()}
 
 
+def _sparse_reach(smoke, label, run, cpu, prefix, n, answer):
+    """``_reach_path`` on empty twins of ``run``'s sketch (on the card) and
+    of ``cpu``'s (on the CPU) fed only the first ``prefix`` edges of the
+    stream's first batch: sparse enough that both answers are common, so
+    that a closure answering "reachable" (or "not") everywhere fails."""
+    from repro_torch.core import EdgeBatch
+
+    src, dst, w = run["stream"].batch_numpy(0)
+    w = w.copy()
+    w[prefix:] = 0
+    twins = [r["module"].ingest(r["module"].empty_like(r["sketch"]),
+                                EdgeBatch.from_numpy(src, dst, w, device=dev))
+             for r, dev in ((run, "cuda"), (cpu, "cpu"))]
+    path = _reach_path(smoke, label, *twins, n, answer)
+    yes = int(path["answers"].sum())
+    smoke.check(min(yes, REACH_PAIRS - yes) >= REACH_PAIRS // 10,
+                f"{label}: both answers common: {yes} reachable and "
+                f"{REACH_PAIRS - yes} not, each >= {REACH_PAIRS // 10}")
+    return path
+
+
 def _checkpoint_round_trip(smoke, sl):
     """The driver's checkpoint path on the card: a run at the slice's flags
     that saves every 26 batches, then ``--resume`` from the batch-26
@@ -854,9 +902,9 @@ def phase_reach(smoke, sl, cmp):
 
     n = sl["run"]["stream"].spec.n_nodes
     parser = stream_ingest.build_parser()
-    wide = {dev: stream_ingest.inline_main(parser.parse_args(
-        [*WIDE_REACH_FLAGS, "--device", dev]))["sketch"]
-        for dev in ("cuda", "cpu")}
+    wide_runs = {dev: stream_ingest.inline_main(parser.parse_args(
+        [*WIDE_REACH_FLAGS, "--device", dev])) for dev in ("cuda", "cpu")}
+    wide = {dev: r["sketch"] for dev, r in wide_runs.items()}
     smoke.check(same_state(wide["cuda"], wide["cpu"]),
                 "gmatrix 2 MB: cuda table == cpu plain table")
     paths = {
@@ -869,6 +917,14 @@ def phase_reach(smoke, sl, cmp):
         "gmatrix 2MB": _reach_path(
             smoke, "gmatrix 2 MB table", wide["cuda"], wide["cpu"], n,
             q.reachability),
+        "kmatrix sparse": _sparse_reach(
+            smoke, f"kmatrix conn, first {REACH_PREFIX['kmatrix']} edges",
+            sl["run"], sl["cpu"], REACH_PREFIX["kmatrix"], n,
+            q.kmatrix_reachability),
+        "gmatrix 2MB sparse": _sparse_reach(
+            smoke, f"gmatrix 2 MB table, first {REACH_PREFIX['gmatrix']} "
+            "edges", wide_runs["cuda"], wide_runs["cpu"],
+            REACH_PREFIX["gmatrix"], n, q.reachability),
     }
     _checkpoint_round_trip(smoke, sl)
     return {"launches": {k: v["launches"] for k, v in paths.items()},
@@ -2015,12 +2071,45 @@ def _remote_run(smoke, label, flags, extra_pids=()):
             "publish_bytes": publish_bytes}
 
 
-def _listen_host():
-    """A ``stream_ingest --listen`` worker host subprocess on the card;
-    returns it and its address."""
-    import os
+def _report_dir(root: str, label: str) -> str:
+    """A fresh directory under ``root`` for one run's launch reports."""
+    path = os.path.join(root, label.replace(" ", "_"))
+    os.makedirs(path)
+    return path
 
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+def _child_launches(smoke, label: str, path: str, children: int) -> dict:
+    """The kernel launches that one run's worker processes reported in
+    ``path`` (``LAUNCH_REPORT_ENV``: each leaves its session's launches and
+    its buffer's ingest calls when it stops), summed; this process's own
+    report, if any, is left out, since its launches are counted here.
+    Every child launched ``matrix_ingest_edges`` at least once for each
+    batch its buffer ingested on the card."""
+    reports = []
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".json"):
+            with open(os.path.join(path, name)) as f:
+                rep = json.load(f)
+            if rep["pid"] != os.getpid():
+                reports.append(rep)
+    pairs = [(r["launches"]["matrix_ingest_edges"], r["buffer_ingests"])
+             for r in reports]
+    smoke.check(len(reports) == children
+                and all(n >= ingests > 0 for n, ingests in pairs),
+                f"{label}: {len(reports)} of {children} worker processes "
+                "reported, each launching matrix_ingest_edges at least once "
+                "for each batch its buffer ingested on the card "
+                f"(launches, ingests: {pairs})")
+    return {k: sum(r["launches"][k] for r in reports) for k in KERNEL_NAMES}
+
+
+def _listen_host(reports: str):
+    """A ``stream_ingest --listen`` worker host subprocess on the card,
+    leaving its launch reports in ``reports``; returns it and its address."""
+    from repro_torch.runtime.backend import LAUNCH_REPORT_ENV
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           LAUNCH_REPORT_ENV: reports}
     host = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.stream_ingest",
          "--listen", "127.0.0.1:0", "--max-sessions", "1",
@@ -2135,7 +2224,8 @@ def _serve_net(smoke, kind, phase_h):
 def _process_drains(smoke):
     """``measure_sharded_ingest(backend="process")`` PROCESS_DRAINS times
     at each K: the drain over K spawn children, each in its own
-    interpreter with its own CUDA context."""
+    interpreter with its own CUDA context (which leave their launch
+    reports where ``LAUNCH_REPORT_ENV`` points)."""
     from repro_torch.serving import SketchRegistry, measure_sharded_ingest
 
     rows = []
@@ -2167,13 +2257,30 @@ def phase_network(smoke, card, serve, bg):
     delta against full; gated against phase H's replays."""
     from repro_torch.kernels import build
     from repro_torch.net.ingest_server import WorkerServer
+    from repro_torch.runtime.backend import LAUNCH_REPORT_ENV
 
     t0 = time.perf_counter()
     built = sorted(p.name for p in build.BUILD_DIR.iterdir())
-    out, launches = {}, {}
+    out, launches, children = {}, {}, {}
+    reports_dir = tempfile.TemporaryDirectory(prefix="phase-j-launches-")
+    reports = reports_dir.name
 
-    def gated(label, flags, sharded=False, kind="kmatrix", **kw):
-        run = _remote_run(smoke, label, ["--sketch", kind, *flags], **kw)
+    def reported(label, n_children, run_fn, path=None):
+        """``run_fn()`` with the worker processes it spawns (they inherit
+        this environment) leaving their launch reports in a directory of
+        its own; the children's launches go to ``children[label]``."""
+        path = path or _report_dir(reports, label)
+        os.environ[LAUNCH_REPORT_ENV] = path
+        try:
+            result = run_fn()
+        finally:
+            del os.environ[LAUNCH_REPORT_ENV]
+        children[label] = _child_launches(smoke, label, path, n_children)
+        return result
+
+    def gated(label, flags, sharded=False, kind="kmatrix", path=None, **kw):
+        run = reported(label, 4 if sharded else 1, lambda: _remote_run(
+            smoke, label, ["--sketch", kind, *flags], **kw), path)
         gate = _sharded_gates if sharded else _bg_gates
         gate(smoke, label, run, serve[kind]["replays"])
         launches[label] = run["launches"]
@@ -2194,10 +2301,11 @@ def phase_network(smoke, card, serve, bg):
               sharded=True, kind=kind)
     gated("socket kmatrix", ["--runtime-backend", "socket"])
 
-    host, address = _listen_host()
+    host_reports = _report_dir(reports, "listen gmatrix")
+    host, address = _listen_host(host_reports)
     try:
         gated("listen gmatrix", ["--runtime-backend", f"socket:{address}"],
-              kind="gmatrix", extra_pids=(host.pid,))
+              kind="gmatrix", path=host_reports, extra_pids=(host.pid,))
         rest, err = host.communicate(timeout=120)
     finally:
         if host.poll() is None:
@@ -2236,12 +2344,16 @@ def phase_network(smoke, card, serve, bg):
         run = _serve_net(smoke, kind, serve[kind])
         launches[f"serve {kind}"] = run["launches"]
         out[f"serve {kind}"] = run["summary"]
-    out["process drains"] = _process_drains(smoke)
+    out["process drains"] = reported(
+        "process drains", PROCESS_DRAINS * sum(DRAIN_SHARDS),
+        lambda: _process_drains(smoke))
+    reports_dir.cleanup()
     now = sorted(p.name for p in build.BUILD_DIR.iterdir())
     smoke.check(now == built, f"no kernel was built during phase J (build "
                 f"directory {len(built)} entries before, {len(now)} after)")
+    print(f"  worker children's launches by run: {json.dumps(children)}")
     print(f"  {card}; phase J {time.perf_counter() - t0:.1f}s")
-    return {"runs": out, "launches": launches}
+    return {"runs": out, "launches": launches, "children": children}
 
 
 # ------------------------------------------------------------ phase K --
@@ -2347,6 +2459,7 @@ def _dist_mesh(smoke, shape, modes, template, replay):
 
     sampler = threading.Thread(target=sample, daemon=True)
     sampler.start()
+    held = _allocated(smoke.torch)  # the job itself is on the host
     t0 = time.perf_counter()
     try:
         ranks = run_ranks(_k_rank, n, shape, modes, *template, DIST_QUERIES,
@@ -2355,6 +2468,7 @@ def _dist_mesh(smoke, shape, modes, template, replay):
         stop.set()
         sampler.join(10)
     wall = time.perf_counter() - t0
+    _ranks_released(smoke, f"mesh {shape}", held)
     grown = max(peak) - before
     print(f"  mesh {shape}: {n} ranks in {wall:.1f}s (spawn, stream, every "
           f"mode); the card's memory {before} MiB before, +{grown} MiB at "
@@ -3707,9 +3821,7 @@ def _summary(name, source, replaces, launches, main, rows):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(launches.values()),
             "launches_by_path": launches,
-            "launches_counted_in": "this process only: the kernels that "
-            "phase J's worker child processes and listen host launch are "
-            "not counted here",
+            "launches_counted_in": LAUNCHES_COUNTED_IN,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "exact": all(r["max_abs_err"] == 0 for r in rows),
             **{k: main[k] for k in (
@@ -3866,7 +3978,9 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
     p99 = summed([r for k, r in bag_rows.items() if k.startswith("serve_p99")])
     served = {**{f"serve {k}": v["launches"] for k, v in serve.items()},
               **bg["launches"],
-              **{f"network {k}": v for k, v in net["launches"].items()}}
+              **{f"network {k}": v for k, v in net["launches"].items()},
+              **{f"network {k} (worker processes)": v
+                 for k, v in net["children"].items()}}
     by_path = {"kmatrix": sl["launches"],
                **{k: v for k, v in cmp["launches"].items()},
                "fm": fm["launches"], **served, **train["launches"]}
@@ -4118,19 +4232,7 @@ def _n_lm_rank(mesh, dev, coord, job):
     del state, grads_ref
     rec["stats"] = group.collective_stats()  # the last step's
     rec["peak"] = torch.cuda.max_memory_allocated(dev)
-    _n_release(torch, dev, blocks)
     return rec
-
-
-def _n_release(torch, dev, received) -> None:
-    """Drop this rank's hold on what the parent shared on the card: a
-    spawned rank ends with ``os._exit``, so a shared block still held then
-    is never handed back and stays allocated in the parent."""
-    import gc
-
-    received.clear()
-    gc.collect()
-    torch.cuda.synchronize(dev)
 
 
 def _n_fm_rank(mesh, dev, coord, job):
@@ -4182,8 +4284,6 @@ def _n_fm_rank(mesh, dev, coord, job):
            "close": bool(torch.allclose(logits, ref, rtol=1e-5, atol=1e-6)),
            "max_abs": float((logits - ref).abs().max()), "stats": stats,
            "peak": torch.cuda.max_memory_allocated(dev)}
-    del ids_l, ref, logits_ref, tables, local, idx, w
-    _n_release(torch, dev, full)
     return out
 
 
@@ -4202,16 +4302,32 @@ def _n_rank(rank, world, kind, job):
     return {"coord": coord, **run(mesh, dev, coord, job)}
 
 
-def _n_free(torch) -> None:
-    """Free what the ranks were handed: the spawned processes' objects
-    (which hold their arguments) first, then the shared blocks."""
+def _allocated(torch) -> int:
+    """This process's allocated card memory once its garbage is collected
+    (earlier phases leave cycles that hold card tensors)."""
     import gc
 
     gc.collect()
+    return torch.cuda.memory_allocated()
+
+
+def _ranks_released(smoke, label: str, before: int) -> None:
+    """After a ``run_ranks`` job, once the caller has dropped the job: this
+    process's allocated memory is back at ``before`` (``_allocated`` just
+    before the job's blocks were built).  A block that a rank still held
+    when it exited stays allocated here (and PyTorch warns at this
+    process's exit that a producer ended before its shared CUDA tensors
+    were released)."""
+    import gc
+
+    torch = smoke.torch
+    gc.collect()  # the caller's job first, then what it still shared
     torch.cuda.ipc_collect()
-    torch.cuda.empty_cache()
-    print(f"  N2: this process holds "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB after the ranks")
+    after = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()  # the next ranks get what this process freed
+    smoke.check(after == before,
+                f"{label}: this process's allocated memory after the ranks "
+                f"{after} B == {before} B before the job's blocks were built")
 
 
 def _n_stats_line(stats: dict) -> str:
@@ -4233,10 +4349,6 @@ def _count_phase_n(kernels: list, fms: list) -> None:
     bags = [b for f in fms for b in f["bags"]]
     row["max_abs_err"] = max(row["max_abs_err"], *(b["max_abs_err"] for b in bags))
     row["exact"] = row["exact"] and all(b["equal"] for b in bags)
-    row["launches_counted_in"] = (
-        "this process, and phase N2's four rank processes (from their "
-        "returns); the kernels that phase J's worker child processes and "
-        "listen host launch are not counted here")
 
 
 def phase_mesh(smoke, card):
@@ -4258,6 +4370,7 @@ def phase_mesh(smoke, card):
     out = {}
     try:
         for name, layers, groups in N_LMS:
+            before = _allocated(torch)
             ref = _n_reference(smoke, name, layers, groups)
             job = (name, layers, groups, ref.pop("blocks"), ref["gmax"],
                    _n_tokens(name, ref["vocab"]))
@@ -4270,7 +4383,7 @@ def phase_mesh(smoke, card):
             print(f"  N2 {name}: ranks {time.perf_counter() - t1:.1f}s (spawn, "
                   f"{N_STEPS} steps)")
             del job
-            _n_free(torch)
+            _ranks_released(smoke, f"N2 {name}", before)
             smoke.check([tuple(r["coord"].values()) for r in ranks]
                         == [divmod(r, N_MESH[1]) for r in range(n)],
                         f"N2 {name}: rank r at row-major coordinate, the "
@@ -4305,6 +4418,7 @@ def phase_mesh(smoke, card):
             out[name] = ranks
         cfg_fm = fm_mod.FMConfig(n_fields=39, embed_dim=10,
                                  total_vocab=10_000_000)
+        before = _allocated(torch)
         fm = fm_mod.init_params(cfg_fm, torch.Generator(device="cuda")
                                 .manual_seed(29), "cuda")
         ids = torch.as_tensor(np.random.default_rng(31).integers(
@@ -4315,7 +4429,7 @@ def phase_mesh(smoke, card):
                 "lin": fm.lin.detach()}, ids, logits)
         fms = run_ranks(_n_rank, n, "fm", job, device="cuda", timeout_s=600)
         del job, fm, ids, logits
-        _n_free(torch)
+        _ranks_released(smoke, "N2 fm serve_bulk", before)
         smoke.check(all(f["launches"] == 3 and f["on"].startswith("cuda")
                         for f in fms),
                     f"N2 fm serve_bulk: every rank launched embedding_bag 3 "
@@ -4517,11 +4631,6 @@ def _count_phase_o(kernels: list, runs: list) -> None:
             n = run["launches"][name]
             row["launches_by_path"][f"O {run['label']} (witnessed child)"] = n
             row["launches"] += n
-        row["launches_counted_in"] = (
-            "this process, and phase O's witnessed query_serve child "
-            "processes (from their reports); the kernels that phase J's "
-            "worker child processes and listen host launch are not counted "
-            "here")
 
 
 def main() -> int:

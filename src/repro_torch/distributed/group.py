@@ -9,6 +9,11 @@ rank's return value in rank order, or ``RankFailure`` with the failing
 ranks' tracebacks; every child is joined with a bound and killed past it
 (at once when the run fails), so none is left behind.
 
+What crosses into a rank and back (``run_ranks`` states the rule in full):
+``args`` may hold tensors on the card, which reach the ranks by CUDA IPC
+and which each rank releases before it leaves; a rank's return value holds
+no tensor that is not on the CPU.
+
 The backend is chosen once, in the parent, from the topology
 (``choose_topology``):
 
@@ -33,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import gc
 import multiprocessing
 import os
 import queue
@@ -46,6 +52,7 @@ import torch.distributed as dist
 COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all",
                "permute")
 FAILURE_GRACE_S = 2.0
+EXIT_GRACE_S = 60.0  # a rank that reported leaves the group within this
 COLLECTIVE_TIMEOUT_S = 120.0  # a collective (or the rendezvous) waits no longer
 
 
@@ -275,18 +282,54 @@ def _stop_rank(finished: bool) -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(fn, rank, init_file, topology, args, results):
-    """Child entry: start the rank, run ``fn``, report (rank, ok, value)."""
+def _off_cpu_leaves(value, path: str = "value") -> list:
+    """The paths of the tensors in ``value`` (through dicts, lists, tuples
+    and dataclasses) that are not on the CPU."""
+    if isinstance(value, torch.Tensor):
+        return [] if value.device.type == "cpu" else [f"{path} on {value.device}"]
+    if isinstance(value, dict):
+        items = [(f"{path}[{k!r}]", v) for k, v in value.items()]
+    elif isinstance(value, (list, tuple)):
+        items = [(f"{path}[{i}]", v) for i, v in enumerate(value)]
+    elif dataclasses.is_dataclass(value) and not isinstance(value, type):
+        items = [(f"{path}.{f.name}", getattr(value, f.name))
+                 for f in dataclasses.fields(value)]
+    else:
+        return []
+    return [leaf for sub, v in items for leaf in _off_cpu_leaves(v, sub)]
+
+
+def _rank_main(fn, rank, init_file, topology, handed, results):
+    """Child entry: start the rank, run ``fn`` on the arguments in the
+    one-item list ``handed``, report (rank, ok, value), then release what it
+    was handed before it leaves the group.
+
+    The arguments come in a list that this function empties, since the
+    spawned ``Process`` object (``multiprocessing.current_process()``)
+    keeps its own arguments, ``handed`` among them, until the interpreter
+    exits, and a CUDA block still held then is never handed back."""
     finished = False
     try:
         _start_rank(rank, init_file, topology)
+        args = handed.pop()
         value = fn(rank, topology.world_size, *args)
+        del args
+        leaves = _off_cpu_leaves(value)
+        if leaves:
+            raise RankFailure(
+                f"rank {rank} returned tensors not on the CPU: "
+                f"{', '.join(leaves)}; a rank returns host values (.cpu())")
         finished = True
     except Exception:  # reported to the parent, which fails the run
         results.put((rank, False, traceback.format_exc()))
     else:
         results.put((rank, True, value))
     finally:
+        handed.clear()
+        args = value = None
+        gc.collect()
+        if topology.device_type == "cuda" and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         _stop_rank(finished)
 
 
@@ -296,9 +339,29 @@ def run_ranks(fn, world_size: int, *args, device="cuda",
     of one process group on ``device``; returns the ranks' values in rank
     order.  ``fn`` and ``args`` must pickle (a module-level function).
 
-    Raises ``RankFailure`` when a rank raises or dies, or when the run
-    outlives ``timeout_s``; a collective that waits longer than
-    ``COLLECTIVE_TIMEOUT_S`` raises in its rank.
+    What crosses the process boundary, each way:
+
+    * Into a rank: ``args`` may hold tensors on the card.  They reach each
+      rank by CUDA IPC, the same blocks, not copies (a layer of mixtral-8x7b
+      at full width is about 7 GB of float32 blocks, and host copies for
+      every rank would go through pipes).  The parent is their producer and
+      keeps its references until every rank has exited; each rank drops
+      every reference to its arguments (the spawned ``Process`` object's
+      included) once ``fn`` has returned, collects, synchronises the card
+      and only then leaves the group, so that no block is still shared
+      when a process exits.  ``fn`` keeps nothing of its arguments past its
+      return (no global, no cache).  After the join the parent runs
+      ``torch.cuda.ipc_collect()``, which frees the blocks that it dropped
+      while a rank still held them.
+    * Out of a rank: the value ``fn`` returns holds no tensor that is not
+      on the CPU (through dicts, lists, tuples and dataclasses), since a
+      rank that handed a CUDA block out would be its producer and exits
+      first.  A tensor on the card (or on ``meta``) fails the run with a
+      ``RankFailure`` that names its path in the value.
+
+    Raises ``RankFailure`` when a rank raises, dies or breaks the return
+    rule, or when the run outlives ``timeout_s``; a collective that waits
+    longer than ``COLLECTIVE_TIMEOUT_S`` raises in its rank.
     """
     topology = choose_topology(world_size, device)
     print(f"process group: {topology.describe()}", flush=True)
@@ -307,24 +370,29 @@ def run_ranks(fn, world_size: int, *args, device="cuda",
         init_file = os.path.join(tmp, "rendezvous")
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True, args=(
-            fn, rank, init_file, topology, args, results))
+            fn, rank, init_file, topology, [args], results))
             for rank in range(world_size)]
         for p in procs:
             p.start()
+        grace = EXIT_GRACE_S
         try:
-            return _collect(procs, results, timeout_s)
+            values = _collect(procs, results, timeout_s)
         except BaseException:  # a failed run: no rank is waited for
+            grace = 10.0
             for p in procs:
                 if p.is_alive():
                     p.kill()
             raise
         finally:
             for p in procs:
-                p.join(timeout=10.0)
+                p.join(timeout=grace)
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10.0)
             results.close()
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
+    return values
 
 
 def _collect(procs, results, timeout_s: float) -> list:

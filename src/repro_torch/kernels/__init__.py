@@ -18,8 +18,9 @@
                    the FM's squared term, for training (same file)
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a
-launch counter (``<wrapper>.launches``).  A CUDA tensor launches the kernel;
-a CPU tensor takes the plain version.  ``build`` compiles the sources with
+launch counter (``<wrapper>.launches``; ``launch_counts()`` reads them
+all).  A CUDA tensor launches the kernel; a CPU tensor takes the plain
+version.  ``build`` compiles the sources with
 ``nvcc`` at first use; ``csrc/sketch_addr.cuh`` holds the hashing and
 routing that the two edge kernels share.  ``ops`` (the bindings to sketch
 state) is loaded on first use: it imports ``repro_torch.core``, whose
@@ -58,7 +59,14 @@ __all__ = ["embedding_bag", "embedding_bag_backward",
            "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_edges",
            "matrix_lookup_edges_plain", "matrix_lookup_plain",
            "reach_closure", "reach_closure_plain", "reach_step",
-           "reach_step_plain", "ops"]
+           "reach_step_plain", "launch_counts", "ops"]
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launch count in this process, by name."""
+    return {fn.__name__: fn.launches for fn in (
+        matrix_ingest, matrix_ingest_edges, matrix_lookup, matrix_lookup_edges,
+        reach_step, reach_closure, embedding_bag, embedding_bag_backward)}
 
 
 def __getattr__(name: str):

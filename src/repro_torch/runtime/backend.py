@@ -56,6 +56,7 @@ its session (``failed``), and the parent raises ``WorkerFailure``.
 from __future__ import annotations
 
 import dataclasses
+import json
 import multiprocessing
 import os
 import queue as queue_mod
@@ -240,6 +241,30 @@ def build_kernels() -> None:
     build.build_all()
 
 
+# names a directory where every worker session that stops leaves a report of
+# the kernels its process launched during it (how a parent counts the
+# launches of worker processes it does not run); unset, nothing is written
+LAUNCH_REPORT_ENV = "REPRO_TORCH_LAUNCH_REPORT"
+
+
+def _report_launches(tenant, before: dict) -> None:
+    """Write this process's kernel launches since ``before`` and the
+    session buffer's ingest calls to ``<pid>-<ns>.json`` in the directory
+    that ``LAUNCH_REPORT_ENV`` names, if it names one."""
+    out = os.environ.get(LAUNCH_REPORT_ENV)
+    if not out:
+        return
+    from repro_torch.kernels import launch_counts
+
+    now = launch_counts()
+    report = {"pid": os.getpid(), "buffer_ingests": tenant.buffer.ingests,
+              "launches": {k: now[k] - before[k] for k in now}}
+    path = os.path.join(out, f"{os.getpid()}-{time.monotonic_ns()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(report, f)
+    os.replace(path + ".tmp", path)  # a reader never sees half a report
+
+
 def build_child_spec(tenant, policy, *, reservoir=None, checkpoint_dir=None,
                      checkpoint_every=0, poll_s=0.05, coalesce_batches=1,
                      coalesce_target=8192, queue_capacity=64,
@@ -310,7 +335,10 @@ def run_ingest_worker(spec: _ChildSpec, recv, send, device="cuda") -> str:
     worker = None
     try:
         os.environ.update(spec.env)
+        from repro_torch.kernels import launch_counts
         from repro_torch.streams.reservoir import Reservoir
+
+        launches_before = launch_counts()
 
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -430,6 +458,7 @@ def run_ingest_worker(spec: _ChildSpec, recv, send, device="cuda") -> str:
                           worker.error_tb or "",
                           worker.metrics_snapshot()))
                     return "failed"
+                _report_launches(tenant, launches_before)
                 send(("stopped", worker.metrics_snapshot(),
                       {"hub": get_hub().state(),
                        "trace": get_trace_log().drain()}))

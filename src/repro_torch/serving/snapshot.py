@@ -140,6 +140,8 @@ class SnapshotBuffer:
         self._pending = torch.zeros((), dtype=torch.int64,  # guarded-by: _lock
                                     device=self.device)
         self._fence: Any = DONE  # guarded-by: _lock
+        # ingest calls so far (each one dispatch of a batch)
+        self.ingests = 0  # guarded-by(writes): _lock
         # Delta publication: with the flag on, each publish() keeps the
         # pre-merge delta (and starts a fresh one) so a remote worker can
         # ship only what accumulated since the previous epoch.
@@ -188,6 +190,7 @@ class SnapshotBuffer:
         """
         with self._lock:
             self._mod.ingest(self._delta, batch)  # writes: 0 (the private delta)
+            self.ingests += 1
             if count is None:
                 self._pending += (batch.weight > 0).sum()
             else:

@@ -369,6 +369,34 @@ def test_a_failing_rank_fails_the_run_and_leaves_no_child():
     assert set(multiprocessing.active_children()) <= before
 
 
+def _returns_off_cpu(rank, world):
+    return {"host": torch.zeros(2), "state": [rank, torch.empty(3, device="meta")]}
+
+
+def test_a_rank_returning_a_tensor_off_the_cpu_fails_the_run():
+    """What a rank returns holds host values only: a leaf off the CPU fails
+    the run, and the failure names the leaf's path in the value."""
+    with pytest.raises(RankFailure, match=r"rank 0 returned tensors not on "
+                       r"the CPU: value\['state'\]\[1\] on meta"):
+        run_ranks(_returns_off_cpu, 2, device="cpu", timeout_s=WAIT_S)
+
+
+def test_off_cpu_leaves_walks_dicts_sequences_and_dataclasses():
+    import dataclasses
+
+    @dataclasses.dataclass
+    class Pair:
+        a: object
+        b: object
+
+    meta = torch.empty(1, device="meta")
+    value = {"x": (torch.ones(1), Pair(np.zeros(2), [meta])), "y": meta,
+             "z": Pair}
+    assert group._off_cpu_leaves(value) == [
+        "value['x'][1].b[0] on meta", "value['y'] on meta"]
+    assert group._off_cpu_leaves({"x": [torch.ones(1)], "y": 3}) == []
+
+
 def test_topology_chooses_the_backend_once_from_the_cards():
     assert choose_topology(4, "cpu") == group.Topology("gloo", "cpu", 4)
     t = choose_topology(4, "cuda", n_cards=1)
@@ -411,6 +439,54 @@ def test_ranks_on_the_card_equal_ranks_on_the_cpu():
         assert card["drops"] == cpu["drops"]
     assert on_card[1]["stats"]["all_to_all"]["host_bytes"] > 0
     assert [r["coords"] for r in on_card] == [r["coords"] for r in on_cpu]
+
+
+_IPC_SCRIPT = """
+import json, sys
+import torch
+from repro_torch.distributed import run_ranks
+
+
+def _rank(rank, world, blocks, scale):
+    return {"sum": float((blocks[rank] * scale).sum()), "on": str(scale.device)}
+
+
+if __name__ == "__main__":
+    torch.cuda.init()
+    before = torch.cuda.memory_allocated()
+    blocks = [torch.full((1 << 22,), float(r + 1), device="cuda")
+              for r in range(2)]
+    scale = torch.full((), 2.0, device="cuda")
+    held = torch.cuda.memory_allocated()
+    ranks = run_ranks(_rank, 2, blocks, scale, timeout_s=240)
+    del blocks, scale
+    torch.cuda.ipc_collect()
+    print(json.dumps({"ranks": ranks, "before": before, "held": held,
+                      "after": torch.cuda.memory_allocated()}))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_handed_to_ranks_are_released_before_exit(tmp_path):
+    """Two gloo ranks of ``cuda:0`` handed CUDA blocks: the run's parent
+    gets its memory back after the join, and at its exit no block is still
+    shared (PyTorch warns "Producer process has been terminated before all
+    shared CUDA tensors released" otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    script = tmp_path / "ipc_ranks.py"
+    script.write_text(_IPC_SCRIPT)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    proc = subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, env=env, timeout=WAIT_S, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [r["sum"] for r in out["ranks"]] == [2.0 * (1 << 22), 4.0 * (1 << 22)]
+    assert all(r["on"] == "cuda:0" for r in out["ranks"])
+    assert out["held"] > out["before"] == out["after"]
+    assert "Producer process has been terminated" not in proc.stderr, \
+        proc.stderr[-3000:]
+    assert "CudaIPCTypes" not in proc.stderr, proc.stderr[-3000:]
 
 
 def test_demo_runs_every_mode_on_cpu_ranks():

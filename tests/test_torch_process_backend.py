@@ -4,6 +4,7 @@ that rebuild the tenant on the CPU and ship publishes back (delta and
 full), a stale delta answered by a resync, a killed child, checkpoints
 written by the child and restored, and two process shards.  Every child
 is spawned (never forked) and every wait is bounded."""
+import json
 import os
 import signal
 import time
@@ -17,6 +18,7 @@ from repro.serving import SketchRegistry as JRegistry
 from repro_torch import interop
 from repro_torch.obs import get_hub, reset_hub
 from repro_torch.runtime import ProcessBackend, Runtime, WorkerFailure
+from repro_torch.runtime.backend import LAUNCH_REPORT_ENV
 from repro_torch.serving import SketchRegistry, attach_shards, gates
 from repro_torch.serving import sharded_conservation
 from repro_torch.serving.snapshot import SnapshotBuffer, StaleDelta
@@ -183,6 +185,25 @@ def test_stale_delta_resyncs_and_a_full_publish_catches_up(monkeypatch,
     assert report["unaccounted_edges"] == 0
     assert gates.layout_counters_equal(t.snapshot.sketch,
                                        runs["thread"][0].snapshot.sketch)
+
+
+def test_a_stopped_child_reports_its_launches_and_ingests(tmp_path,
+                                                         monkeypatch):
+    """With ``LAUNCH_REPORT_ENV`` naming a directory, the child leaves its
+    kernel launches and its buffer's ingest calls there when it stops: one
+    warm batch and every batch after the parent's two.  On the CPU every
+    wrapper takes its plain version, so no kernel is launched."""
+    monkeypatch.setenv(LAUNCH_REPORT_ENV, str(tmp_path))
+    t = _tenant()
+    report, handle = _drain(t, "process")
+    assert report["state"] == "stopped"
+    files = sorted(tmp_path.glob("*.json"))
+    assert len(files) == 1, files
+    rep = json.loads(files[0].read_text())
+    assert rep["pid"] == handle.worker.process.pid != os.getpid()
+    assert rep["buffer_ingests"] == 1 + t.stream.num_batches - 2
+    assert set(rep["launches"]) >= {"matrix_ingest_edges", "reach_closure"}
+    assert not any(rep["launches"].values())
 
 
 def test_killed_child_is_a_worker_failure_with_the_accounting():

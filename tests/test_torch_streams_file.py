@@ -117,6 +117,30 @@ def test_ids_outside_int32_raise_where_the_reference_wraps(tmp_path, value,
         FileStream(path)
 
 
+@pytest.mark.parametrize("n_edges", [4, 3], ids=["multiple", "remainder"])
+def test_past_the_last_batch_the_port_raises_where_the_reference_pads_or_fails(
+        tmp_path, n_edges):
+    """ROADMAP C: the reference does not check ``i`` against
+    ``num_batches``.  Where the edge count is a multiple of the batch size
+    it returns an all-padding batch at ``i = num_batches``; otherwise numpy
+    raises ``ValueError`` (negative dimensions).  The port raises
+    ``IndexError`` in both cases."""
+    path = _write(tmp_path / "edges.txt", np.arange(n_edges),
+                  np.arange(n_edges) + 1, header=False)
+    ref, port = JFileStream(path, batch_size=2), FileStream(path, batch_size=2)
+    assert ref.num_batches == port.num_batches == 2
+    if n_edges % 2 == 0:
+        for col in ref.batch_numpy(2):
+            assert col.dtype == np.int32 and col.tolist() == [0, 0]
+    else:
+        with pytest.raises(ValueError, match="negative dimensions"):
+            ref.batch_numpy(2)
+    with pytest.raises(IndexError):
+        port.batch_numpy(2)
+    with pytest.raises(IndexError):
+        port.batch(2, device="cpu")
+
+
 @pytest.mark.parametrize("text", ["", "# only a comment\n"])
 def test_a_file_without_edges_raises_in_both(tmp_path, text):
     path = tmp_path / "empty.txt"
