@@ -29,6 +29,7 @@ from repro_torch.core.kmatrix import KMatrix, layer_rows
 from repro_torch.core.partitioning import good_turing_outlier_share, plan_for
 from repro_torch.core.routing import RouteTable, routes_match
 from repro_torch.core.types import EdgeBatch, VertexStats
+from repro_torch.obs.profile import profile_span
 
 BACKENDS = ("width_class", "flat")
 
@@ -212,7 +213,9 @@ def ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
     place; returns ``sk``.  See ``kernels.ops.kmatrix_accel_ingest``."""
     from repro_torch.kernels.ops import kmatrix_accel_ingest
 
-    return kmatrix_accel_ingest(sk, batch, capacity=capacity, block_b=block_b)
+    with profile_span("sketch.ingest"):
+        return kmatrix_accel_ingest(sk, batch, capacity=capacity,
+                                    block_b=block_b)
 
 
 def edge_freq(sk: KMatrixAccel, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -221,41 +224,46 @@ def edge_freq(sk: KMatrixAccel, src: torch.Tensor, dst: torch.Tensor) -> torch.T
     A query's slots are hashed to its own partition's width; for the other
     classes they are clamped into range and the gathered values discarded.
     """
-    p = sk.route.lookup(src)
-    w_p = sk.part_width[p]
-    hi = fastrange(sk.hashes.mix(src), w_p)  # [d, *S]
-    hj = fastrange(sk.hashes.mix(dst), w_p)
-    rows = layer_rows(sk.depth, src.ndim, src.device)
-    est = torch.full(src.shape, torch.iinfo(torch.int32).max,
-                     dtype=torch.int32, device=src.device)
-    for c, (w_c, p_c) in enumerate(zip(sk.class_widths, sk.class_counts)):
-        if p_c == 0:
-            continue
-        sel = sk.part_class[p] == c
-        q = torch.where(sel, sk.part_index[p], 0)
-        vals = sk.pools[c][rows, q[None], hi.clamp(max=w_c - 1),
-                           hj.clamp(max=w_c - 1)].amin(dim=0)
-        est = torch.where(sel, vals, est)
-    return est
+    with profile_span("query.edge_freq"):
+        p = sk.route.lookup(src)
+        w_p = sk.part_width[p]
+        hi = fastrange(sk.hashes.mix(src), w_p)  # [d, *S]
+        hj = fastrange(sk.hashes.mix(dst), w_p)
+        rows = layer_rows(sk.depth, src.ndim, src.device)
+        est = torch.full(src.shape, torch.iinfo(torch.int32).max,
+                         dtype=torch.int32, device=src.device)
+        for c, (w_c, p_c) in enumerate(zip(sk.class_widths,
+                                           sk.class_counts)):
+            if p_c == 0:
+                continue
+            sel = sk.part_class[p] == c
+            q = torch.where(sel, sk.part_index[p], 0)
+            vals = sk.pools[c][rows, q[None], hi.clamp(max=w_c - 1),
+                               hj.clamp(max=w_c - 1)].amin(dim=0)
+            est = torch.where(sel, vals, est)
+        return est
 
 
 def node_out_freq(sk: KMatrixAccel, v: torch.Tensor) -> torch.Tensor:
     """Row-sum of v's row inside its class block, min over layers;
     bit-identical to ``kmatrix.node_out_freq`` on the flat twin."""
-    p = sk.route.lookup(v)
-    hi_full = sk.hashes.mix(v)  # [d, *S]
-    rows = layer_rows(sk.depth, v.ndim, v.device)
-    est = torch.full(v.shape, torch.iinfo(torch.int32).max,
-                     dtype=torch.int32, device=v.device)
-    for c, (w_c, p_c) in enumerate(zip(sk.class_widths, sk.class_counts)):
-        if p_c == 0:
-            continue
-        sel = sk.part_class[p] == c
-        q = torch.where(sel, sk.part_index[p], 0)
-        hi = fastrange(hi_full, w_c)  # [d, *S]
-        vals = sk.pools[c][rows, q[None], hi, :].sum(dim=-1, dtype=torch.int32)
-        est = torch.where(sel, vals.amin(dim=0), est)
-    return est
+    with profile_span("query.node_freq"):
+        p = sk.route.lookup(v)
+        hi_full = sk.hashes.mix(v)  # [d, *S]
+        rows = layer_rows(sk.depth, v.ndim, v.device)
+        est = torch.full(v.shape, torch.iinfo(torch.int32).max,
+                         dtype=torch.int32, device=v.device)
+        for c, (w_c, p_c) in enumerate(zip(sk.class_widths,
+                                           sk.class_counts)):
+            if p_c == 0:
+                continue
+            sel = sk.part_class[p] == c
+            q = torch.where(sel, sk.part_index[p], 0)
+            hi = fastrange(hi_full, w_c)  # [d, *S]
+            vals = sk.pools[c][rows, q[None], hi, :].sum(dim=-1,
+                                                         dtype=torch.int32)
+            est = torch.where(sel, vals.amin(dim=0), est)
+        return est
 
 
 def conn_cells(sk: KMatrixAccel, v: torch.Tensor) -> torch.Tensor:
@@ -269,11 +277,12 @@ def empty_like(sk: KMatrixAccel) -> KMatrixAccel:
     The counters are fresh storage, never an alias of ``sk``'s: an in-place
     ingest into the result leaves ``sk`` unchanged.
     """
-    return sk.replace(
-        pools=tuple(torch.zeros_like(p) for p in sk.pools),
-        conn=torch.zeros_like(sk.conn),
-        overflow=torch.zeros_like(sk.overflow),
-    )
+    with profile_span("sketch.empty_like"):
+        return sk.replace(
+            pools=tuple(torch.zeros_like(p) for p in sk.pools),
+            conn=torch.zeros_like(sk.conn),
+            overflow=torch.zeros_like(sk.overflow),
+        )
 
 
 def merge(a: KMatrixAccel, b: KMatrixAccel) -> KMatrixAccel:
@@ -291,11 +300,12 @@ def merge(a: KMatrixAccel, b: KMatrixAccel) -> KMatrixAccel:
             "merge: operands use different partition plans (built from "
             "different samples); edges route to different slabs, so summing "
             "the pools silently corrupts estimates")
-    return a.replace(
-        pools=tuple(pa + pb for pa, pb in zip(a.pools, b.pools)),
-        conn=a.conn + b.conn,
-        overflow=a.overflow + b.overflow,
-    )
+    with profile_span("sketch.merge"):
+        return a.replace(
+            pools=tuple(pa + pb for pa, pb in zip(a.pools, b.pools)),
+            conn=a.conn + b.conn,
+            overflow=a.overflow + b.overflow,
+        )
 
 
 # ------------------------------------------------------------- relayout ----

@@ -23,6 +23,7 @@ from repro_torch.core.kmatrix import layer_rows
 from repro_torch.core.types import EdgeBatch
 from repro_torch.kernels.matrix_ingest import matrix_ingest_edges
 from repro_torch.kernels.matrix_lookup import matrix_lookup_edges
+from repro_torch.obs.profile import profile_span
 
 
 @tensor_dataclass
@@ -63,17 +64,20 @@ def ingest(sk: MatrixSketch,
     """Add ``batch`` into ``sk.table`` in place (one ``matrix_ingest_edges``
     launch on a CUDA table); returns ``sk``.  Every nonzero weight counts,
     negative (turnstile) ones too, as in the JAX package."""
-    matrix_ingest_edges((sk.table.unsqueeze(1),), sk.hashes.a, sk.hashes.b,
-                        *(_int32(x) for x in (batch.src, batch.dst, batch.weight)))
+    with profile_span("sketch.ingest"):
+        matrix_ingest_edges((sk.table.unsqueeze(1),), sk.hashes.a,
+                            sk.hashes.b, *(_int32(x) for x in (
+                                batch.src, batch.dst, batch.weight)))
     return sk
 
 
 def edge_freq(sk: MatrixSketch, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     """Point queries (one ``matrix_lookup_edges`` launch on a CUDA table);
     shape-preserving."""
-    est = matrix_lookup_edges(sk.table, sk.hashes.a, sk.hashes.b, _int32(src),
-                              _int32(dst))
-    return est.view(src.shape)
+    with profile_span("query.edge_freq"):
+        est = matrix_lookup_edges(sk.table, sk.hashes.a, sk.hashes.b,
+                                  _int32(src), _int32(dst))
+        return est.view(src.shape)
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:
@@ -84,25 +88,29 @@ def _int32(x: torch.Tensor) -> torch.Tensor:
 
 def node_out_freq(sk: MatrixSketch, v: torch.Tensor) -> torch.Tensor:
     """Aggregate out-weight of vertex ``v``: min over layers of its row sum."""
-    hv = node_cells(sk, v).long()  # [d, *S]
-    rows = layer_rows(sk.depth, v.ndim, v.device)
-    sums = sk.table[rows, hv, :].sum(dim=-1, dtype=torch.int32)  # [d, *S]
-    return sums.amin(dim=0)
+    with profile_span("query.node_freq"):
+        hv = node_cells(sk, v).long()  # [d, *S]
+        rows = layer_rows(sk.depth, v.ndim, v.device)
+        # [d, *S]
+        sums = sk.table[rows, hv, :].sum(dim=-1, dtype=torch.int32)
+        return sums.amin(dim=0)
 
 
 def node_in_freq(sk: MatrixSketch, v: torch.Tensor) -> torch.Tensor:
     """Aggregate in-weight of vertex ``v``: min over layers of its column sum."""
-    hv = node_cells(sk, v).long()
-    rows = layer_rows(sk.depth, v.ndim, v.device)
-    # advanced indices around the middle slice put the broadcast dims in
-    # front, as in numpy: gathered shape is [d, *S, w]
-    sums = sk.table[rows, :, hv].sum(dim=-1, dtype=torch.int32)
-    return sums.amin(dim=0)
+    with profile_span("query.node_freq"):
+        hv = node_cells(sk, v).long()
+        rows = layer_rows(sk.depth, v.ndim, v.device)
+        # advanced indices around the middle slice put the broadcast dims in
+        # front, as in numpy: gathered shape is [d, *S, w]
+        sums = sk.table[rows, :, hv].sum(dim=-1, dtype=torch.int32)
+        return sums.amin(dim=0)
 
 
 def empty_like(sk: MatrixSketch) -> MatrixSketch:
     """A zero-counter sketch sharing layout and hashes; fresh storage."""
-    return sk.replace(table=torch.zeros_like(sk.table))
+    with profile_span("sketch.empty_like"):
+        return sk.replace(table=torch.zeros_like(sk.table))
 
 
 def merge(a: MatrixSketch, b: MatrixSketch) -> MatrixSketch:
@@ -114,4 +122,5 @@ def merge(a: MatrixSketch, b: MatrixSketch) -> MatrixSketch:
         raise ValueError(
             "merge: operands use different hash families (built with "
             "different seeds); merging them silently corrupts estimates")
-    return a.replace(table=a.table + b.table)
+    with profile_span("sketch.merge"):
+        return a.replace(table=a.table + b.table)

@@ -26,7 +26,7 @@ from repro_torch.core import kmatrix_accel as kma
 from repro_torch.core import matrix_sketch as ms
 from repro_torch.kernels.ops import accel_reach_closure
 from repro_torch.kernels.reach_closure import reach_step, reach_step_plain
-from repro_torch.obs.profile import profile_call
+from repro_torch.obs.profile import profile_call, profile_span
 
 CLOSURE_BACKENDS = ("kernel", "plain")
 
@@ -56,9 +56,9 @@ def build_closure(adj_layers: torch.Tensor, max_hops: int | None = None, *,
     """
     backend = closure_backend(backend)
     step = reach_step if backend == "kernel" else reach_step_plain
-    return profile_call(f"closure:{backend}", accel_reach_closure, adj_layers,
+    return profile_call("query.closure", accel_reach_closure, adj_layers,
                         n_steps=_closure_steps(adj_layers.shape[-1], max_hops),
-                        step=step)
+                        step=step, span_args=backend)
 
 
 def reachability_from_closure(closure: torch.Tensor, hi: torch.Tensor,
@@ -137,19 +137,20 @@ def heavy_nodes(
     does; callers filter on the host.  The chunks are scored one after
     another on ``device``.
     """
-    n_chunks = -(-universe_size // chunk)
-    offsets = torch.arange(chunk, dtype=torch.int32, device=device)
-    ids_out, freqs_out = [], []
-    for start in range(0, n_chunks * chunk, chunk):
-        ids = start + offsets
-        freqs = node_freq_fn(ids)
-        valid = (ids < universe_size) & (freqs >= threshold)
-        ids_out.append(torch.where(valid, ids, -1))
-        freqs_out.append(torch.where(valid, freqs, 0))
-    if not ids_out:
-        empty = torch.empty(0, dtype=torch.int32, device=device)
-        return empty, empty.clone()
-    return torch.cat(ids_out), torch.cat(freqs_out)
+    with profile_span("query.heavy_nodes"):
+        n_chunks = -(-universe_size // chunk)
+        offsets = torch.arange(chunk, dtype=torch.int32, device=device)
+        ids_out, freqs_out = [], []
+        for start in range(0, n_chunks * chunk, chunk):
+            ids = start + offsets
+            freqs = node_freq_fn(ids)
+            valid = (ids < universe_size) & (freqs >= threshold)
+            ids_out.append(torch.where(valid, ids, -1))
+            freqs_out.append(torch.where(valid, freqs, 0))
+        if not ids_out:
+            empty = torch.empty(0, dtype=torch.int32, device=device)
+            return empty, empty.clone()
+        return torch.cat(ids_out), torch.cat(freqs_out)
 
 
 def heavy_edges(

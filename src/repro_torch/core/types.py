@@ -5,6 +5,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.struct import tensor_dataclass
+from repro_torch.obs.profile import profile_span
 
 
 @tensor_dataclass
@@ -27,13 +28,13 @@ class EdgeBatch:
     def from_numpy(src: np.ndarray, dst: np.ndarray,
                    weight: np.ndarray | None = None, *,
                    device="cuda") -> "EdgeBatch":
-        if weight is None:
-            weight = np.ones_like(src, dtype=np.int32)
-
         def put(x):
             return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
 
-        return EdgeBatch(src=put(src), dst=put(dst), weight=put(weight))
+        with profile_span("dispatch.from_numpy"):
+            if weight is None:
+                weight = np.ones_like(src, dtype=np.int32)
+            return EdgeBatch(src=put(src), dst=put(dst), weight=put(weight))
 
     @staticmethod
     def pad_to(src: np.ndarray, dst: np.ndarray, weight: np.ndarray,

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.common.hashing import fastrange, mix
 from repro_torch.kernels import build
+from repro_torch.obs.profile import profile_span
 
 MAX_CLASSES = 16  # class pools the edge kernel's parameter block holds
 # Layers one thread of the edge kernel adds (grid y = ceil(d / this)): 1 is
@@ -248,40 +249,48 @@ def matrix_ingest_edges(pools, a, b, src, dst, weight, *, route=None,
     lie in ``[0, P)`` and part_class / part_index address the pools, as a
     sketch's own tables do.
     """
-    pools = tuple(pools)
-    _check_edges(pools, a, b, src, dst, weight, route, part_class, part_index,
-                 conn, overflow, capacity)
-    device = pools[0].device
-    kw = dict(route=route, part_class=part_class, part_index=part_index,
-              conn=conn, overflow=overflow, capacity=capacity)
-    if device.type == "cpu":
-        return matrix_ingest_edges_plain(pools, a, b, src, dst, weight, **kw)
-    if device.type != "cuda":
-        raise ValueError(f"matrix_ingest_edges runs on cuda or cpu, not {device}")
-    n, n_edges, d = len(pools), src.shape[0], a.shape[0]
-    base = (ctypes.c_void_p * n)(*(p.data_ptr() for p in pools))
-    parts = (ctypes.c_int * n)(*(p.shape[1] for p in pools))
-    widths = (ctypes.c_int * n)(*(p.shape[-1] for p in pools))
-    if route is None:
-        routed = (0, None, None, 0, 0, None, None, 0, None, 0, None, 0, None)
-    else:
-        n_parts = part_class.shape[0]
-        # the tally's scratch, zeroed by the launch; none when no partition
-        # can overflow (stream-ordered, so freeing it here is safe)
-        count = (torch.empty(n_parts, dtype=torch.int32, device=device)
-                 if capacity < n_edges else None)
-        routed = (1, route.keys.data_ptr(), route.part.data_ptr(),
-                  route.keys.shape[0], route.outlier, part_class.data_ptr(),
-                  part_index.data_ptr(), n_parts, conn.data_ptr(),
-                  conn.shape[-1], count.data_ptr() if count is not None else None,
-                  min(capacity, n_edges), overflow.data_ptr())
-    lib, fn = _edges_launcher()
-    with build.on_device(device) as stream:
-        code = fn(base, parts, widths, n, src.data_ptr(), dst.data_ptr(),
-                  weight.data_ptr(), a.data_ptr(), b.data_ptr(), n_edges, d,
-                  *routed, -(-d // LAYERS_PER_THREAD), stream)
-    build.check(lib, "matrix_ingest", code)
-    build.count_launch(matrix_ingest_edges)
+    with profile_span("dispatch.matrix_ingest_edges"):
+        pools = tuple(pools)
+        with profile_span("dispatch.check"):
+            _check_edges(pools, a, b, src, dst, weight, route, part_class,
+                         part_index, conn, overflow, capacity)
+        device = pools[0].device
+        kw = dict(route=route, part_class=part_class, part_index=part_index,
+                  conn=conn, overflow=overflow, capacity=capacity)
+        if device.type == "cpu":
+            return matrix_ingest_edges_plain(pools, a, b, src, dst, weight,
+                                             **kw)
+        if device.type != "cuda":
+            raise ValueError(f"matrix_ingest_edges runs on cuda or cpu, "
+                             f"not {device}")
+        n, n_edges, d = len(pools), src.shape[0], a.shape[0]
+        base = (ctypes.c_void_p * n)(*(p.data_ptr() for p in pools))
+        parts = (ctypes.c_int * n)(*(p.shape[1] for p in pools))
+        widths = (ctypes.c_int * n)(*(p.shape[-1] for p in pools))
+        if route is None:
+            routed = (0, None, None, 0, 0, None, None, 0, None, 0, None, 0,
+                      None)
+        else:
+            n_parts = part_class.shape[0]
+            # the tally's scratch, zeroed by the launch; none when no
+            # partition can overflow (stream-ordered, so freeing it here is
+            # safe)
+            count = (torch.empty(n_parts, dtype=torch.int32, device=device)
+                     if capacity < n_edges else None)
+            routed = (1, route.keys.data_ptr(), route.part.data_ptr(),
+                      route.keys.shape[0], route.outlier,
+                      part_class.data_ptr(), part_index.data_ptr(), n_parts,
+                      conn.data_ptr(), conn.shape[-1],
+                      count.data_ptr() if count is not None else None,
+                      min(capacity, n_edges), overflow.data_ptr())
+        lib, fn = _edges_launcher()
+        with build.on_device(device) as stream:
+            code = fn(base, parts, widths, n, src.data_ptr(),
+                      dst.data_ptr(), weight.data_ptr(), a.data_ptr(),
+                      b.data_ptr(), n_edges, d, *routed,
+                      -(-d // LAYERS_PER_THREAD), stream)
+        build.check(lib, "matrix_ingest", code)
+        build.count_launch(matrix_ingest_edges)
 
 
 matrix_ingest_edges.launches = 0

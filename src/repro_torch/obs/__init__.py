@@ -1,6 +1,7 @@
 """Telemetry: the mergeable metrics hub (``hub``) and the bounded span log
-(``trace``), copies of the JAX package's, the ``REPRO_PROFILE=1``
-timing hooks (``profile``) on ``torch.profiler``, and the exposition
+(``trace``), copies of the JAX package's, the spans at the layer
+boundaries (``profile``: ``torch.profiler`` ranges under any profiler
+session, hub timings under ``REPRO_PROFILE=1``), and the exposition
 plumbing (``dump``: the scrape payload and the ``--metrics-json`` file),
 and the live terminal poller (``dashboard``, a copy of the JAX package's:
 ``python -m repro_torch.obs.dashboard``).

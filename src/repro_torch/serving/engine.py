@@ -43,6 +43,7 @@ from repro_torch.core import (
     queries,
 )
 from repro_torch.obs.hub import get_hub
+from repro_torch.obs.profile import profile_span
 from repro_torch.serving.snapshot import Snapshot, sketch_device
 
 EDGE_FREQ = "edge_freq"
@@ -55,6 +56,7 @@ HEAVY_NODES = "heavy_nodes"
 
 FAMILIES = (EDGE_FREQ, NODE_OUT, NODE_IN, REACH, PATH_WEIGHT,
             SUBGRAPH_WEIGHT, HEAVY_NODES)
+_GROUP_SITES = {f: "engine.group." + f for f in FAMILIES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +132,13 @@ def _bucket(n: int, lo: int, hi: int) -> int:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+    with profile_span("engine.readback"):
+        return x.cpu().numpy()
+
+
+def _put(arr: np.ndarray, device) -> torch.Tensor:
+    with profile_span("engine.pad"):
+        return torch.as_tensor(arr, device=device)
 
 
 class ClosureCache:
@@ -183,7 +191,7 @@ class QueryEngine:
     def _pad(vals: list[int], bucket: int, device) -> torch.Tensor:
         arr = np.zeros(bucket, np.int32)
         arr[: len(vals)] = vals
-        return torch.as_tensor(arr, device=device)
+        return _put(arr, device)
 
     @staticmethod
     def _pair_sum(sk, mod, src: np.ndarray, dst: np.ndarray,
@@ -191,9 +199,8 @@ class QueryEngine:
         """Masked int32 sum of edge frequencies along the last axis
         (shared by path_weight and subgraph_weight)."""
         dev = sketch_device(sk)
-        est = mod.edge_freq(sk, torch.as_tensor(src, device=dev),
-                            torch.as_tensor(dst, device=dev))
-        keep = torch.as_tensor(mask, device=dev)
+        est = mod.edge_freq(sk, _put(src, dev), _put(dst, dev))
+        keep = _put(mask, dev)
         return _host(torch.where(keep, est, 0).sum(dim=-1, dtype=torch.int32))
 
     # ------------------------------------------------------------- planning
@@ -204,35 +211,38 @@ class QueryEngine:
         Returns results in request order.  Exact: each family is routed to
         the same ``repro_torch.core`` functions a direct caller would use.
         """
-        sk = snapshot.sketch
-        mod = sketch_module(sk)
-        values: list[Any] = [None] * len(requests)
+        with profile_span("engine.execute", (snapshot.epoch, len(requests))):
+            sk = snapshot.sketch
+            mod = sketch_module(sk)
+            values: list[Any] = [None] * len(requests)
 
-        groups: dict[tuple, list[int]] = {}
-        for i, r in enumerate(requests):
-            groups.setdefault(self._group_key(r), []).append(i)
+            groups: dict[tuple, list[int]] = {}
+            for i, r in enumerate(requests):
+                groups.setdefault(self._group_key(r), []).append(i)
 
-        hub = get_hub()
-        for key, idxs in groups.items():
-            family = key[0]
-            handler = self._HANDLERS[family]
-            t0 = time.perf_counter()
-            # a group can exceed the largest bucket; split it rather than
-            # overflowing the padded arrays
-            for lo in range(0, len(idxs), self.max_bucket):
-                handler(self, snapshot, sk, mod, key,
-                        idxs[lo:lo + self.max_bucket], requests, values)
-                self.batches_planned += 1
-            hub.counter("repro_engine_requests_total",
-                        "requests planned, by query class",
-                        family=family).inc(len(idxs))
-            hub.histogram("repro_engine_group_seconds",
-                          "handler wall time per planned group, "
-                          "by query class",
-                          family=family).observe(time.perf_counter() - t0)
+            hub = get_hub()
+            for key, idxs in groups.items():
+                family = key[0]
+                handler = self._HANDLERS[family]
+                t0 = time.perf_counter()
+                with profile_span(_GROUP_SITES[family]):
+                    # a group can exceed the largest bucket; split it rather
+                    # than overflowing the padded arrays
+                    for lo in range(0, len(idxs), self.max_bucket):
+                        handler(self, snapshot, sk, mod, key,
+                                idxs[lo:lo + self.max_bucket], requests,
+                                values)
+                        self.batches_planned += 1
+                hub.counter("repro_engine_requests_total",
+                            "requests planned, by query class",
+                            family=family).inc(len(idxs))
+                hub.histogram("repro_engine_group_seconds",
+                              "handler wall time per planned group, "
+                              "by query class",
+                              family=family).observe(time.perf_counter() - t0)
 
-        return [Result(requests[i].family, snapshot.epoch, values[i])
-                for i in range(len(requests))]
+            return [Result(requests[i].family, snapshot.epoch, values[i])
+                    for i in range(len(requests))]
 
     def _group_key(self, r: Request) -> tuple:
         if r.family == REACH:
@@ -288,9 +298,11 @@ class QueryEngine:
         dev = sketch_device(sk)
         src = self._pad([requests[i].src for i in idxs], b, dev)
         dst = self._pad([requests[i].dst for i in idxs], b, dev)
-        out = _host(queries.reachability_from_closure(
-            closure, queries.reach_cells(sk, src),
-            queries.reach_cells(sk, dst)))[:n]
+        with profile_span("query.reach"):
+            hit = queries.reachability_from_closure(
+                closure, queries.reach_cells(sk, src),
+                queries.reach_cells(sk, dst))
+        out = _host(hit)[:n]
         for j, i in enumerate(idxs):
             values[i] = bool(out[j])
 

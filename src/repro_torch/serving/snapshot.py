@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.common.struct import is_static
 from repro_torch.core.types import EdgeBatch
+from repro_torch.obs.profile import profile_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +189,7 @@ class SnapshotBuffer:
         *represents*, for a caller that pre-aggregated duplicate rows on the
         host; by default the device counts the batch's weight>0 rows.
         """
-        with self._lock:
+        with self._lock, profile_span("snapshot.ingest"):
             self._mod.ingest(self._delta, batch)  # writes: 0 (the private delta)
             self.ingests += 1
             if count is None:
@@ -215,7 +216,8 @@ class SnapshotBuffer:
         This is the only host sync point in the ingest path (the pending
         edge count is read to stamp the snapshot).
         """
-        with self._lock:
+        with self._lock, profile_span("snapshot.publish",
+                                      self._front.epoch + 1):
             pending = int(self._pending)
             merged = self._mod.merge(self._front.sketch, self._delta)
             if self.capture_publish_delta:

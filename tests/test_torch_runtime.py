@@ -673,8 +673,8 @@ def test_profile_hooks_record_nothing_when_off(monkeypatch):
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 def test_closure_build_is_a_profiled_site(monkeypatch, backend):
     """As in the JAX package, the closure build is the profiled call site:
-    ``closure:<backend>`` with REPRO_PROFILE=1, nothing without it; the
-    closure is the same either way."""
+    ``query.closure`` (the backend in the span's args) with REPRO_PROFILE=1,
+    nothing without it; the closure is the same either way."""
     from repro_torch.core.queries import build_closure
 
     layers = torch.as_tensor(np.random.default_rng(3).integers(
@@ -691,7 +691,7 @@ def test_closure_build_is_a_profiled_site(monkeypatch, backend):
         sites = [labels["site"] for name, labels, _ in
                  get_hub().state()["hists"]
                  if name == "repro_profile_seconds"]
-        assert sites == [f"closure:{backend}"]
+        assert sites == ["query.closure"]
         assert torch.equal(on, off)
     finally:
         monkeypatch.delenv("REPRO_PROFILE")
