@@ -476,7 +476,8 @@ O_RUNS = (("kmatrix --ingest-dedup", ["--sketch", "kmatrix", "--ingest-dedup"]),
           ("gmatrix --shards 4", ["--sketch", "gmatrix", "--shards", "4"]),
           ("kmatrix socket --serve", ["--sketch", "kmatrix", "--runtime-backend",
                                       "socket", "--serve", "127.0.0.1:0"]))
-O_KERNELS = ("matrix_ingest_edges", "reach_closure", "matrix_lookup_edges")
+O_KERNELS = ("matrix_ingest_edges", "reach_closure", "matrix_lookup_edges",
+             "kmatrix_lookup_edges", "kmatrix_node_out")
 O_EXAMPLES = (("quickstart", []), ("sketch_queries", []),
               ("query_serving", []), ("background_ingest", []),
               ("train_lm", ["--steps", "30"]))
@@ -587,7 +588,8 @@ class Smoke:
 
 
 KERNEL_NAMES = ("matrix_ingest", "matrix_ingest_edges", "matrix_lookup",
-                "matrix_lookup_edges", "reach_step", "reach_closure",
+                "matrix_lookup_edges", "kmatrix_lookup_edges",
+                "kmatrix_node_out", "reach_step", "reach_closure",
                 "embedding_bag", "embedding_bag_backward")
 LAUNCHES_COUNTED_IN = (
     "every process of the run that launches a kernel: this process; phase "
@@ -613,6 +615,20 @@ def read_launches() -> dict:
     from repro_torch.kernels import launch_counts
 
     return launch_counts()
+
+
+QUERY_KERNELS = {"gmatrix": ("matrix_lookup_edges",),
+                 "kmatrix": ("kmatrix_lookup_edges", "kmatrix_node_out")}
+
+
+def _query_launches(launches: dict) -> dict:
+    return {k: launches[k] for names in QUERY_KERNELS.values() for k in names}
+
+
+def _query_launches_fit(kind: str, lookups: dict) -> bool:
+    """A served kMatrix launches both of its query kernels and no gMatrix
+    lookup; a served gMatrix the reverse."""
+    return all((n >= 1) == (k in QUERY_KERNELS[kind]) for k, n in lookups.items())
 
 
 def same_state(a, b) -> bool:
@@ -677,7 +693,10 @@ def phase_slice(smoke):
     smoke.check(launches["reach_step"] == launches["reach_closure"] == 0,
                 "no reach_step or reach_closure launch in ingest")
     smoke.check(launches["matrix_lookup"] == launches["matrix_lookup_edges"] == 0,
-                "no matrix_lookup launch (width-class queries are gathers)")
+                "no matrix_lookup launch (the width-class queries have their own)")
+    smoke.check(launches["kmatrix_lookup_edges"] == 1
+                and launches["kmatrix_node_out"] == 0,
+                "one kmatrix_lookup_edges launch (the ARE's queries)")
     smoke.check(launches["embedding_bag"] == 0, "no embedding_bag launch")
     rate = run["n_edges"] / run["ingest_seconds"] / 1e6
     print(f"  ingest: {run['n_edges']} edges in {run['ingest_seconds']:.4f}s "
@@ -986,6 +1005,7 @@ def phase_file(smoke, sl, cmp, reach):
     timings["kmatrix ingest_s"] = run["ingest_seconds"]
     expect = {k: 0 for k in KERNEL_NAMES}
     expect["matrix_ingest_edges"] = 52
+    expect["kmatrix_lookup_edges"] = 1  # the ARE's queries
     smoke.check(launches["kmatrix"] == expect,
                 f"file-fed kmatrix: launches {launches['kmatrix']} == {expect}")
     smoke.check(run["batches"] == 52 and run["n_edges"] == STREAM_EDGES,
@@ -1309,10 +1329,10 @@ def _serve_run(smoke, kind):
                 f"{kind}: reach_closure launches == closure misses "
                 f"({stats['closure_misses']})")
     smoke.check(launches["reach_step"] == 0, f"{kind}: no reach_step launch")
-    lookups = launches["matrix_lookup_edges"]
-    smoke.check(lookups >= 1 if kind == "gmatrix" else lookups == 0,
-                f"{kind}: matrix_lookup_edges launches {lookups} "
-                f"({'>= 1' if kind == 'gmatrix' else '0: gathers'})")
+    lookups = _query_launches(launches)
+    smoke.check(_query_launches_fit(kind, lookups),
+                f"{kind}: query launches {lookups} (each >= 1 for its own "
+                "sketch, 0 for the other's)")
     smoke.check(launches["matrix_ingest"] == launches["matrix_lookup"]
                 == launches["embedding_bag"] == 0,
                 f"{kind}: no rectangle entry point, no embedding_bag")
@@ -1352,8 +1372,8 @@ def _serve_run(smoke, kind):
                 f"answers on the card == the CPU engine's on the CPU replay")
 
     # the device time of one edge group (the min bucket, 64 point queries)
-    # of this layout: the kMatrix's are plain gathers, the gMatrix's one
-    # matrix_lookup_edges launch
+    # of this layout: one kmatrix_lookup_edges launch for the kMatrix, one
+    # matrix_lookup_edges launch for the gMatrix
     pairs = [(r.src, r.dst) for r in run["requests"] if r.family == "edge_freq"]
     qs, qd = (torch.as_tensor([p[i] for p in pairs[:64]], dtype=torch.int32,
                               device=tenant.device) for i in (0, 1))
@@ -1651,10 +1671,10 @@ def _bg_run(smoke, label, flags):
                 == launches["matrix_lookup"] == launches["embedding_bag"]
                 == 0, f"{label}: no reach_step, no rectangle entry point, "
                 "no embedding_bag")
-    lookups = launches["matrix_lookup_edges"]
-    smoke.check(lookups >= 1 if kind == "gmatrix" else lookups == 0,
-                f"{label}: matrix_lookup_edges launches {lookups} "
-                f"({'>= 1' if kind == 'gmatrix' else '0: gathers'})")
+    lookups = _query_launches(launches)
+    smoke.check(_query_launches_fit(kind, lookups),
+                f"{label}: query launches {lookups} (each >= 1 for its own "
+                "sketch, 0 for the other's)")
     smoke.check(summary["total_edges"] == STREAM_EDGES,
                 f"{label}: total_edges {summary['total_edges']} == "
                 f"{STREAM_EDGES}")
@@ -3809,6 +3829,94 @@ def _bench_lookup_edges(smoke, table, a, b, src, dst, label):
     return row
 
 
+def _bench_kmatrix_query(smoke, sk, ids, label):
+    """``kmatrix_lookup_edges`` (``ids`` a (src, dst) pair) or
+    ``kmatrix_node_out`` (``ids`` one tensor) on the width-class sketch
+    ``sk``: bit-equal to the plain version, then timed beside it and beside
+    the nearest library calls on cells worked out in advance."""
+    torch = smoke.torch
+    from repro_torch.common.hashing import fastrange, mix
+    from repro_torch.kernels import (
+        kmatrix_lookup_edges,
+        kmatrix_lookup_edges_plain,
+        kmatrix_node_out,
+        kmatrix_node_out_plain,
+    )
+
+    edges = len(ids) == 2
+    name = "kmatrix_lookup_edges" if edges else "kmatrix_node_out"
+    kernel, plain = ((kmatrix_lookup_edges, kmatrix_lookup_edges_plain) if edges
+                     else (kmatrix_node_out, kmatrix_node_out_plain))
+    kw = dict(route=sk.route, part_class=sk.part_class, part_index=sk.part_index)
+    a, b = sk.hashes.a, sk.hashes.b
+    out_k = kernel(sk.pools, a, b, *ids, **kw)
+    out_p = plain(sk.pools, a, b, *ids, **kw)
+    torch.cuda.synchronize()
+    err = int((out_k.long() - out_p.long()).abs().max()) if out_k.numel() else 0
+    smoke.check(torch.equal(out_k, out_p), f"{name} {label} bit-equal")
+    # the pools side by side, [d, cells], and each query's partition start
+    d = sk.depth
+    flat = torch.cat([p.reshape(d, -1) for p in sk.pools], 1)
+    sizes = [p[0].numel() for p in sk.pools]
+    class_start = torch.as_tensor([sum(sizes[:c]) for c in range(len(sizes))],
+                                  device="cuda")
+    widths = torch.as_tensor(sk.class_widths, device="cuda")
+    part = sk.route.lookup(ids[0])
+    cls = sk.part_class[part].long()
+    w = widths[cls]
+    start = class_start[cls] + sk.part_index[part].long() * w * w
+    hi = fastrange(mix(a, b, ids[0]), w).long()  # [d, n]
+    if edges:
+        cells = start + hi * w + fastrange(mix(a, b, ids[1]), w).long()
+
+        def library():
+            """The yardstick: gather + amin on cells worked out in advance
+            (no routing, no hashing)."""
+            return torch.gather(flat, 1, cells).amin(0)
+        addressed = cells.reshape(d, -1)
+        library_call = ("torch.gather + amin on cells worked out in advance: "
+                        "the query without its routing and hashing")
+    else:
+        wmax = max(sk.class_widths)
+        cols = torch.arange(wmax, device="cuda")
+        row_cells = (start + hi * w)[..., None] + cols  # [d, n, wmax]
+        keep = cols < w[:, None]
+        row_cells = torch.where(keep, row_cells, 0).view(d, -1)
+
+        def library():
+            """The yardstick: gather, masked int32 row sum, amin on cells
+            worked out in advance (no routing, no hashing)."""
+            vals = torch.gather(flat, 1, row_cells).view(d, -1, wmax)
+            return torch.where(keep, vals, 0).sum(-1, dtype=torch.int32).amin(0)
+        addressed = torch.where(keep, (start + hi * w)[..., None] + cols,
+                                -1).view(d, -1)
+        library_call = ("torch.gather + masked sum + amin on row cells worked "
+                        "out in advance: the query without its routing and "
+                        "hashing")
+    smoke.check(torch.equal(library(), out_p),
+                f"{name} {label}: the library calls agree")
+    call = lambda: kernel(sk.pools, a, b, *ids, **kw)  # noqa: E731
+    call_plain = lambda: plain(sk.pools, a, b, *ids, **kw)  # noqa: E731
+    dev = {"device_ms": device_ms(torch, call),
+           "plain_device_ms": device_ms(torch, call_plain),
+           "library_device_ms": device_ms(torch, library)}
+    # bytes the data needs: ids and answers once, the hash parameters, and
+    # each 32-byte sector of the pools the queries address (the route
+    # search's keys not counted: a lower bound)
+    layer = torch.arange(d, device="cuda")[:, None] * flat.shape[1]
+    sectors = int(torch.unique((layer + addressed)[addressed >= 0] // 8).numel())
+    n = ids[0].numel()
+    nbytes = 4 * (len(ids) + 1) * n + 16 * d + 32 * sectors
+    row = {"shape": f"classes {list(sk.class_widths)} x {list(sk.class_counts)}"
+                    f" d={d} n={n}",
+           "sectors_gathered": sectors, "max_abs_err": err,
+           "ms": time_ms(torch, call), "plain_ms": time_ms(torch, call_plain),
+           "library_ms": time_ms(torch, library), "library_call": library_call,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", **dev}
+    print(f"  {name} {label}: {json.dumps(row)}")
+    return row
+
+
 def _random_ints(torch, gen, hi, shape):
     return torch.randint(0, hi, shape, generator=gen, device="cuda",
                          dtype=torch.int32)
@@ -3910,6 +4018,17 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
         gm.hashes.b, _random_ints(torch, gen, 1 << 30, (1_000_000,)),
         _random_ints(torch, gen, 1 << 30, (1_000_000,)), "wide"), "wide"))
 
+    # kmatrix_lookup_edges / kmatrix_node_out on the main path's sketch at
+    # the serving cell's shapes (an edge group of 512, a heavy sweep's
+    # chunk of 4,096 ids), then the evaluation's 10,000 queries as ids
+    kq_edges = [labelled(_bench_kmatrix_query(smoke, sk, pair, label), label)
+                for pair, label in (((qs[:512], qd[:512]), "512 edge queries"),
+                                    ((qs, qd), "10,000 edge queries"))]
+    kq_node = [labelled(_bench_kmatrix_query(smoke, sk, (ids,), label), label)
+               for ids, label in (
+                   (torch.arange(4096, dtype=torch.int32, device="cuda"),
+                    "heavy chunk of 4,096 ids"), (qs, "10,000 ids"))]
+
     # matrix_lookup (given cells): the same queries' node_cells, a wide shape
     cells = [ms.node_cells(gm, x).view(gm.depth, 1, -1) for x in (qs, qd)]
     look = [labelled(_bench_lookup(smoke, gm.table.unsqueeze(1), *cells,
@@ -4003,6 +4122,18 @@ def phase_kernels(smoke, sl, cmp, reach, fm, serve, bg, net, train):
                  "src/repro/kernels/matrix_lookup.py:43",
                  {k: v["matrix_lookup_edges"] for k, v in by_path.items()},
                  look_edges[0], look_edges),
+        _summary("kmatrix_lookup_edges",
+                 "src/repro_torch/kernels/csrc/matrix_lookup.cu",
+                 "none: src/repro/core/kmatrix_accel.py edge_freq (gathers "
+                 "outside any kernel)",
+                 {k: v["kmatrix_lookup_edges"] for k, v in by_path.items()},
+                 kq_edges[0], kq_edges),
+        _summary("kmatrix_node_out",
+                 "src/repro_torch/kernels/csrc/matrix_lookup.cu",
+                 "none: src/repro/core/kmatrix_accel.py node_out_freq "
+                 "(gathers outside any kernel)",
+                 {k: v["kmatrix_node_out"] for k, v in by_path.items()},
+                 kq_node[0], kq_node),
         _summary("reach_step", "src/repro_torch/kernels/csrc/reach_closure.cu",
                  "src/repro/kernels/reach_closure.py:39",
                  {**{f"{k} reachability": v["reach_step"]
@@ -4553,11 +4684,11 @@ def _o_run_gates(smoke, label, flags, rc, text, state_path, replays):
                 f"{STREAM_EDGES}, none dropped")
     misses = (summary.get("engine_sharded_closure_misses", 0)
               + summary["engine_closure_misses"])
-    lookups = launches["matrix_lookup_edges"]
+    lookups = _query_launches(launches)
     smoke.check(launches["reach_closure"] == misses > 0
-                and (lookups >= 1 if kind == "gmatrix" else lookups == 0),
+                and _query_launches_fit(kind, lookups),
                 f"O {label}: reach_closure launches == closure misses "
-                f"({misses}), matrix_lookup_edges {lookups}")
+                f"({misses}), query launches {lookups}")
     print(f"  O {label}: achieved_qps={summary['achieved_qps']} p50_ms="
           f"{summary['p50_ms']} p99_ms={summary['p99_ms']} witness "
           f"{json.dumps(rep)} launches "

@@ -1,5 +1,6 @@
 """kMatrix width-class layout — the sketch whose ingest runs the
-hand-written ``matrix_ingest_edges`` kernel.
+hand-written ``matrix_ingest_edges`` kernel and whose edge and node-out
+queries run ``kmatrix_lookup_edges`` and ``kmatrix_node_out``.
 
 ``KMatrixAccel`` stores the same counters as the flat-pool ``KMatrix``
 (``repro_torch.core.kmatrix``) in a different arrangement: partition widths
@@ -8,7 +9,10 @@ width ``w_c`` lives as one row of a rectangular pool int32[d, P_c, w_c, w_c].
 Ingest is one kernel launch per batch that routes, hashes and adds each
 edge (``repro_torch.kernels.ops.kmatrix_accel_ingest``); the JAX package's
 per-class ``(P_c, capacity)`` rectangles survive as
-``kernels.ops.rectangle_ingest``, on no path.
+``kernels.ops.rectangle_ingest``, on no path.  A point query is one launch
+that routes, hashes, gathers from the query's class pool and takes the min
+over layers (``kernels/matrix_lookup.py``); the JAX package's per-class
+gathers are those kernels' plain versions, which a CPU sketch runs.
 
 Layout equivalence: cell ``(hi, hj)`` of partition ``p`` is
 ``pools[class(p)][d, index(p), hi, hj]`` here and
@@ -25,10 +29,12 @@ import torch
 
 from repro_torch.common.hashing import HashFamily, families_match, fastrange
 from repro_torch.common.struct import static_field, tensor_dataclass
-from repro_torch.core.kmatrix import KMatrix, layer_rows
+from repro_torch.core.kmatrix import KMatrix
+from repro_torch.core.matrix_sketch import _int32
 from repro_torch.core.partitioning import good_turing_outlier_share, plan_for
 from repro_torch.core.routing import RouteTable, routes_match
 from repro_torch.core.types import EdgeBatch, VertexStats
+from repro_torch.kernels.matrix_lookup import kmatrix_lookup_edges, kmatrix_node_out
 from repro_torch.obs.profile import profile_span
 
 BACKENDS = ("width_class", "flat")
@@ -219,51 +225,28 @@ def ingest(sk: KMatrixAccel, batch: EdgeBatch, *,
 
 
 def edge_freq(sk: KMatrixAccel, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Point queries on the class layout (plain gathers).
-
-    A query's slots are hashed to its own partition's width; for the other
-    classes they are clamped into range and the gathered values discarded.
-    """
+    """Point queries on the class layout, ``src`` and ``dst`` of one shape;
+    shape-preserving.  One ``kmatrix_lookup_edges`` launch on a CUDA sketch
+    (routing, hashing, the class table's gather and the min over layers);
+    the plain per-class gathers on the CPU."""
     with profile_span("query.edge_freq"):
-        p = sk.route.lookup(src)
-        w_p = sk.part_width[p]
-        hi = fastrange(sk.hashes.mix(src), w_p)  # [d, *S]
-        hj = fastrange(sk.hashes.mix(dst), w_p)
-        rows = layer_rows(sk.depth, src.ndim, src.device)
-        est = torch.full(src.shape, torch.iinfo(torch.int32).max,
-                         dtype=torch.int32, device=src.device)
-        for c, (w_c, p_c) in enumerate(zip(sk.class_widths,
-                                           sk.class_counts)):
-            if p_c == 0:
-                continue
-            sel = sk.part_class[p] == c
-            q = torch.where(sel, sk.part_index[p], 0)
-            vals = sk.pools[c][rows, q[None], hi.clamp(max=w_c - 1),
-                               hj.clamp(max=w_c - 1)].amin(dim=0)
-            est = torch.where(sel, vals, est)
-        return est
+        est = kmatrix_lookup_edges(
+            sk.pools, sk.hashes.a, sk.hashes.b, _int32(src), _int32(dst),
+            route=sk.route, part_class=sk.part_class,
+            part_index=sk.part_index)
+        return est.view(src.shape)
 
 
 def node_out_freq(sk: KMatrixAccel, v: torch.Tensor) -> torch.Tensor:
     """Row-sum of v's row inside its class block, min over layers;
-    bit-identical to ``kmatrix.node_out_freq`` on the flat twin."""
+    bit-identical to ``kmatrix.node_out_freq`` on the flat twin.  One
+    ``kmatrix_node_out`` launch on a CUDA sketch, the plain per-class
+    gathers on the CPU; shape-preserving."""
     with profile_span("query.node_freq"):
-        p = sk.route.lookup(v)
-        hi_full = sk.hashes.mix(v)  # [d, *S]
-        rows = layer_rows(sk.depth, v.ndim, v.device)
-        est = torch.full(v.shape, torch.iinfo(torch.int32).max,
-                         dtype=torch.int32, device=v.device)
-        for c, (w_c, p_c) in enumerate(zip(sk.class_widths,
-                                           sk.class_counts)):
-            if p_c == 0:
-                continue
-            sel = sk.part_class[p] == c
-            q = torch.where(sel, sk.part_index[p], 0)
-            hi = fastrange(hi_full, w_c)  # [d, *S]
-            vals = sk.pools[c][rows, q[None], hi, :].sum(dim=-1,
-                                                         dtype=torch.int32)
-            est = torch.where(sel, vals.amin(dim=0), est)
-        return est
+        est = kmatrix_node_out(
+            sk.pools, sk.hashes.a, sk.hashes.b, _int32(v), route=sk.route,
+            part_class=sk.part_class, part_index=sk.part_index)
+        return est.view(v.shape)
 
 
 def conn_cells(sk: KMatrixAccel, v: torch.Tensor) -> torch.Tensor:

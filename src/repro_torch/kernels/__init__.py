@@ -8,6 +8,10 @@
                    cells (csrc/matrix_lookup.cu)
   matrix_lookup_edges — the same from the raw query endpoints, hashed in
                    the kernel (same file)
+  kmatrix_lookup_edges, kmatrix_node_out — the width-class kMatrix's edge
+                   and node-out queries, routing and the class-table
+                   gather in one launch each (same file; the JAX package
+                   runs them as gathers outside any kernel)
   reach_step     — one boolean squaring on tensor cores, every layer
                    (csrc/reach_closure.cu)
   reach_closure  — the whole boolean closure of every layer in one launch,
@@ -22,7 +26,7 @@ launch counter (``<wrapper>.launches``; ``launch_counts()`` reads them
 all).  A CUDA tensor launches the kernel; a CPU tensor takes the plain
 version.  ``build`` compiles the sources with
 ``nvcc`` at first use; ``csrc/sketch_addr.cuh`` holds the hashing and
-routing that the two edge kernels share.  ``ops`` (the bindings to sketch
+routing that the edge and kMatrix query kernels share.  ``ops`` (the bindings to sketch
 state) is loaded on first use: it imports ``repro_torch.core``, whose
 sketches import the wrappers here.
 """
@@ -40,6 +44,10 @@ from repro_torch.kernels.matrix_ingest import (
     matrix_ingest_plain,
 )
 from repro_torch.kernels.matrix_lookup import (
+    kmatrix_lookup_edges,
+    kmatrix_lookup_edges_plain,
+    kmatrix_node_out,
+    kmatrix_node_out_plain,
     matrix_lookup,
     matrix_lookup_edges,
     matrix_lookup_edges_plain,
@@ -56,7 +64,9 @@ __all__ = ["embedding_bag", "embedding_bag_backward",
            "embedding_bag_backward_plain", "embedding_bag_plain",
            "sum_and_square_bags", "matrix_ingest",
            "matrix_ingest_edges", "matrix_ingest_edges_plain",
-           "matrix_ingest_plain", "matrix_lookup", "matrix_lookup_edges",
+           "matrix_ingest_plain", "kmatrix_lookup_edges",
+           "kmatrix_lookup_edges_plain", "kmatrix_node_out",
+           "kmatrix_node_out_plain", "matrix_lookup", "matrix_lookup_edges",
            "matrix_lookup_edges_plain", "matrix_lookup_plain",
            "reach_closure", "reach_closure_plain", "reach_step",
            "reach_step_plain", "launch_counts", "ops"]
@@ -66,7 +76,8 @@ def launch_counts() -> dict:
     """Each kernel wrapper's launch count in this process, by name."""
     return {fn.__name__: fn.launches for fn in (
         matrix_ingest, matrix_ingest_edges, matrix_lookup, matrix_lookup_edges,
-        reach_step, reach_closure, embedding_bag, embedding_bag_backward)}
+        kmatrix_lookup_edges, kmatrix_node_out, reach_step, reach_closure,
+        embedding_bag, embedding_bag_backward)}
 
 
 def __getattr__(name: str):

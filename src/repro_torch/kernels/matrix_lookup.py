@@ -1,9 +1,14 @@
 """Batched sketch point queries: the hand-written CUDA kernels, their
-wrappers and their plain versions.  Two entry points:
+wrappers and their plain versions.  Four entry points:
 
     matrix_lookup(pool, hi, hj)            out[p, c] = min_r pool[r, p, hi[r,p,c], hj[r,p,c]]
     matrix_lookup_edges(table, a, b, src, dst)
         out[q] = min_r table[r, fastrange(mix_r(src[q]), w), fastrange(mix_r(dst[q]), w)]
+    kmatrix_lookup_edges(pools, a, b, src, dst, route=, part_class=, part_index=)
+        out[q] = min_r pools[c][r, index(p), fastrange(mix_r(src[q]), w_c),
+                                             fastrange(mix_r(dst[q]), w_c)]
+    kmatrix_node_out(pools, a, b, v, route=, part_class=, part_index=)
+        out[q] = min_r sum_j pools[c][r, index(p), fastrange(mix_r(v[q]), w_c), j]
 
 ``matrix_lookup``: pool int32[d, P, w, w], hi/hj int32[d, P, C] ->
 int32[P, C], for any C (the JAX package pads C to its block and slices;
@@ -11,10 +16,19 @@ here the kernel masks the ragged edge); the Pallas function's counterpart.
 ``matrix_lookup_edges``: table int32[d, w, w], the hash parameters a/b
 int64[d], src/dst int32[n] -> int32[n]; the whole TCM / gMatrix query
 (``accel_matrix_edge_freq``), hashing included, in one launch.
+``kmatrix_lookup_edges`` / ``kmatrix_node_out``: the width-class kMatrix's
+edge and node-out queries (``kmatrix_accel.edge_freq`` /
+``node_out_freq``), each in one launch: ``p = route(src[q])`` (or
+``v[q]``), its class ``c`` and row ``index(p)``, ``w_c`` the class width;
+pools int32[d, P_c, w_c, w_c] (at most 16, widths powers of two), ids
+int32[n] -> int32[n].  Row sums are int32 and wrap, as
+``sum(dtype=torch.int32)`` does.
 
 The kernels (``csrc/matrix_lookup.cu``) replace the Pallas one-hot product
 ``repro/kernels/matrix_lookup.py:matrix_lookup`` with a gather and an int32
-running min over the layers; see the source for their design.
+running min over the layers, and the width-class kMatrix's per-class
+gathers, which the JAX package runs outside any kernel, with one routed
+launch; see the source for their design.
 """
 from __future__ import annotations
 
@@ -176,3 +190,193 @@ def matrix_lookup_edges(table: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 matrix_lookup_edges.launches = 0
+
+
+MAX_CLASSES = 16  # class pools the kMatrix kernels' class table holds
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+class _ClassTable(ctypes.Structure):
+    """The kMatrix kernels' class table, ``LookupClasses`` in the source."""
+
+    _fields_ = [("base", ctypes.c_void_p * MAX_CLASSES),
+                ("parts", ctypes.c_int * MAX_CLASSES),
+                ("width", ctypes.c_int * MAX_CLASSES)]
+
+
+@functools.lru_cache(maxsize=64)
+def _class_table(classes: tuple) -> _ClassTable:
+    """The table of the pools ``((data_ptr, parts, width), ...)``, built
+    once per set of pointers: a sketch's pools keep theirs until a publish
+    replaces them.  It holds plain integers and no tensor."""
+    table = _ClassTable()
+    for c, (ptr, parts, width) in enumerate(classes):
+        table.base[c], table.parts[c], table.width[c] = ptr, parts, width
+    return table
+
+
+def _check_routed(pools, a, b, ids, route, part_class, part_index) -> None:
+    if not 1 <= len(pools) <= MAX_CLASSES:
+        raise ValueError(f"the kMatrix lookups take 1 to {MAX_CLASSES} class "
+                         f"pools, got {len(pools)}")
+    if a.dim() != 1 or a.shape[0] < 1 or b.shape != a.shape:
+        raise ValueError(f"a, b must be [d >= 1], got {tuple(a.shape)} / "
+                         f"{tuple(b.shape)}")
+    d = a.shape[0]
+    for pool in pools:
+        w = pool.shape[-1]
+        if (pool.dim() != 4 or pool.shape[0] != d or pool.shape[2] != w
+                or w < 1 or w & (w - 1)):
+            raise ValueError(f"pools must be [{d}, P_c, w_c, w_c] with w_c a "
+                             f"power of two, got {tuple(pool.shape)}")
+    if ids[0].dim() != 1 or any(t.shape != ids[0].shape for t in ids):
+        raise ValueError(f"ids must be [n], got "
+                         f"{' / '.join(str(tuple(t.shape)) for t in ids)}")
+    if ids[0].shape[0] >= 2**31:
+        raise ValueError(f"n = {ids[0].shape[0]} must be below 2^31")
+    if route.keys.dim() != 1 or route.part.shape != route.keys.shape:
+        raise ValueError("route keys and part must be [n_keys]")
+    if part_class.dim() != 1 or part_index.shape != part_class.shape:
+        raise ValueError(f"part_class, part_index must be [P], got "
+                         f"{tuple(part_class.shape)} / "
+                         f"{tuple(part_index.shape)}")
+    if not 0 <= route.outlier < part_class.shape[0]:
+        raise ValueError(f"outlier {route.outlier} is not a partition of "
+                         f"{part_class.shape[0]}")
+    device = pools[0].device
+    for name, t, dtype in (
+            ("a", a, torch.int64), ("b", b, torch.int64),
+            *(("ids", t, torch.int32) for t in ids),
+            ("route.keys", route.keys, torch.int32),
+            ("route.part", route.part, torch.int32),
+            ("part_class", part_class, torch.int32),
+            ("part_index", part_index, torch.int32),
+            *((f"pools[{c}]", p, torch.int32) for c, p in enumerate(pools))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, pools on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def kmatrix_lookup_edges_plain(pools, a, b, src, dst, *, route, part_class,
+                               part_index) -> torch.Tensor:
+    """Plain PyTorch version: ``route.lookup``, ``mix``, then per class a
+    masked gather at the class width and ``amin`` over the layers."""
+    rows = torch.arange(a.shape[0], device=src.device)[:, None]
+    p = route.lookup(src)
+    hs, ht = mix(a, b, src), mix(a, b, dst)  # [d, n]
+    est = torch.full(src.shape, _INT32_MAX, dtype=torch.int32,
+                     device=src.device)
+    for c, pool in enumerate(pools):
+        w_c = pool.shape[-1]
+        if pool.shape[1] == 0:
+            continue
+        sel = part_class[p] == c
+        q = torch.where(sel, part_index[p], 0)
+        vals = pool[rows, q[None], fastrange(hs, w_c),
+                    fastrange(ht, w_c)].amin(dim=0)
+        est = torch.where(sel, vals, est)
+    return est
+
+
+def kmatrix_node_out_plain(pools, a, b, v, *, route, part_class,
+                           part_index) -> torch.Tensor:
+    """Plain PyTorch version: ``route.lookup``, ``mix``, then per class a
+    masked row gather at the class width, an int32 row sum and ``amin``
+    over the layers."""
+    rows = torch.arange(a.shape[0], device=v.device)[:, None]
+    p = route.lookup(v)
+    hv = mix(a, b, v)  # [d, n]
+    est = torch.full(v.shape, _INT32_MAX, dtype=torch.int32, device=v.device)
+    for c, pool in enumerate(pools):
+        w_c = pool.shape[-1]
+        if pool.shape[1] == 0:
+            continue
+        sel = part_class[p] == c
+        q = torch.where(sel, part_index[p], 0)
+        vals = pool[rows, q[None], fastrange(hv, w_c), :].sum(
+            dim=-1, dtype=torch.int32)
+        est = torch.where(sel, vals.amin(dim=0), est)
+    return est
+
+
+@functools.cache
+def _routed_launcher(name: str):
+    lib = build.load("matrix_lookup")
+    fn = getattr(lib, f"{name}_launch")
+    fn.restype = ctypes.c_int
+    n_ids = 2 if name == "kmatrix_lookup_edges" else 1
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]  # class table, classes
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]  # a, b, d
+                   # route keys and parts, n_keys, outlier
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   # part_class, part_index, the ids, out
+                   + [ctypes.c_void_p] * (3 + n_ids)
+                   + [ctypes.c_int, ctypes.c_void_p])  # n, stream
+    return lib, fn
+
+
+def _routed(wrapper, plain, pools, a, b, ids, route, part_class, part_index):
+    """Check, then the plain version on the CPU or one launch on the card."""
+    pools = tuple(pools)
+    _check_routed(pools, a, b, ids, route, part_class, part_index)
+    device = pools[0].device
+    if device.type == "cpu":
+        return plain(pools, a, b, *ids, route=route, part_class=part_class,
+                     part_index=part_index)
+    if device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cuda or cpu, not {device}")
+    n = ids[0].shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    table = _class_table(tuple((p.data_ptr(), p.shape[1], p.shape[-1])
+                               for p in pools))
+    lib, fn = _routed_launcher(wrapper.__name__)
+    with build.on_device(device) as stream:
+        code = fn(ctypes.byref(table), len(pools), a.data_ptr(), b.data_ptr(),
+                  a.shape[0], route.keys.data_ptr(), route.part.data_ptr(),
+                  route.keys.shape[0], route.outlier, part_class.data_ptr(),
+                  part_index.data_ptr(), *(t.data_ptr() for t in ids),
+                  out.data_ptr(), n, stream)
+    build.check(lib, "matrix_lookup", code)
+    build.count_launch(wrapper)
+    return out
+
+
+def kmatrix_lookup_edges(pools, a, b, src, dst, *, route, part_class,
+                         part_index) -> torch.Tensor:
+    """Point queries of the edges ``(src[q], dst[q])`` on the width-class
+    kMatrix -> a new int32[n].
+
+    Args:
+      pools: the class pools, int32[d, P_c, w_c, w_c] each (at most 16,
+        widths powers of two).
+      a, b: int64[d], the hash family's parameters (uint32 values).
+      src, dst: int32[n], the query endpoints (any values).
+      route: the ``RouteTable`` (``keys``, ``part``, ``outlier``, ``lookup``).
+      part_class, part_index: int32[P], each partition's class and row.
+
+    A CUDA sketch launches the kernel (no host synchronisation, no range
+    check); a CPU sketch takes the plain version.  Precondition: route parts
+    lie in ``[0, P)`` and part_class / part_index address the pools, as a
+    sketch's own tables do.
+    """
+    return _routed(kmatrix_lookup_edges, kmatrix_lookup_edges_plain, pools, a,
+                   b, (src, dst), route, part_class, part_index)
+
+
+kmatrix_lookup_edges.launches = 0
+
+
+def kmatrix_node_out(pools, a, b, v, *, route, part_class,
+                     part_index) -> torch.Tensor:
+    """Aggregate out-weight of the vertices ``v`` on the width-class kMatrix
+    -> a new int32[n]: the min over layers of the int32 sum of each
+    vertex's row in its partition.  Arguments and dispatch as
+    ``kmatrix_lookup_edges``, with ``v`` int32[n]."""
+    return _routed(kmatrix_node_out, kmatrix_node_out_plain, pools, a, b,
+                   (v,), route, part_class, part_index)
+
+
+kmatrix_node_out.launches = 0

@@ -21,7 +21,8 @@
   ``reach_closure`` launch where a layer fits one block's shared memory,
   else one ``reach_step`` launch per squaring.
 * ``embedding_bag`` and ``kmatrix_accel_edge_freq`` (the width-class
-  kMatrix's point queries, gathers with no kernel): re-exported, as the JAX
+  kMatrix's edge queries, one ``kmatrix_lookup_edges`` launch on the card;
+  gathers outside any kernel in the JAX package): re-exported, as the JAX
   package's ``ops`` does; the FM (``models/recsys/fm.py``) calls the bag.
 """
 from __future__ import annotations

@@ -19,8 +19,10 @@ call on the snapshot's device.  Two properties matter:
 
 On a CUDA snapshot the padded arrays are made on the card: TCM/gMatrix
 edge, path and subgraph groups are one ``matrix_lookup_edges`` launch each,
-the width-class kMatrix's are plain gathers (outside any kernel in the JAX
-package too).  Every handler brings its answers to the host before
+the width-class kMatrix's one ``kmatrix_lookup_edges`` launch each, and its
+node-out groups and heavy sweep chunks one ``kmatrix_node_out`` launch each
+(the JAX package answers the kMatrix's as gathers outside any kernel).
+Every handler brings its answers to the host before
 ``execute`` returns, so a caller's latency counts their completion.
 """
 from __future__ import annotations

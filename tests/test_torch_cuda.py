@@ -9,14 +9,20 @@ import numpy as np
 import pytest
 import torch
 
+from _kmatrix_classes import STRUCTURES, class_sketch, query_ids
 from repro_torch import interop
 from repro_torch.common.hashing import HashFamily
 from repro_torch.configs import registry
 from repro_torch.core import EdgeBatch, KMatrixAccel, vertex_stats_from_sample
+from repro_torch.core import kmatrix as tkm
 from repro_torch.core import kmatrix_accel as tkma
 from repro_torch.kernels import (
     embedding_bag,
     embedding_bag_plain,
+    kmatrix_lookup_edges,
+    kmatrix_lookup_edges_plain,
+    kmatrix_node_out,
+    kmatrix_node_out_plain,
     matrix_ingest,
     matrix_ingest_edges,
     matrix_ingest_edges_plain,
@@ -35,7 +41,8 @@ from repro_torch.kernels.reach_closure import CLOSURE_MAX_W
 from repro_torch.core import queries as tq
 from repro_torch.launch import query_serve, stream_ingest
 from repro_torch.models.recsys import fm as tfm
-from repro_torch.serving import QueryEngine, SketchRegistry, gates, synth_requests
+from repro_torch.serving import QueryEngine, SketchRegistry, WorkloadMix, gates
+from repro_torch.serving import synth_requests
 from repro_torch.serving import engine as eng
 from repro_torch.serving import mix_for_sketch
 from repro_torch.streams import make_stream
@@ -476,6 +483,112 @@ def test_edge_wrappers_check_inputs_on_card(card):
         matrix_lookup_edges(table, gpu.hashes.a, gpu.hashes.b,
                             on_card.src[::2], on_card.dst[::2])
     assert (matrix_ingest_edges.launches, matrix_lookup_edges.launches) == before
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 4101])
+@pytest.mark.parametrize("near_2_31", [False, True],
+                         ids=["small", "near_2_31"])
+@pytest.mark.parametrize("structure", list(STRUCTURES))
+def test_kmatrix_query_kernels_equal_plain_and_the_flat_twin(card, structure,
+                                                             near_2_31, n):
+    """kmatrix_lookup_edges and kmatrix_node_out, one launch per call, equal
+    their plain versions and the flat twin's kmatrix.edge_freq /
+    node_out_freq bit for bit: one class, the serving cell's three, the
+    table's sixteen up to a width of 256; routed, negative, unseen and zero
+    ids; counters near 2^31, whose row sums wrap."""
+    sk = class_sketch(structure, depth=7, seed=n + 3, device=card,
+                      near_2_31=near_2_31)
+    src, dst = query_ids(sk, n, 1), query_ids(sk, n, 2)
+    kw = dict(route=sk.route, part_class=sk.part_class,
+              part_index=sk.part_index)
+    args = (sk.pools, sk.hashes.a, sk.hashes.b)
+    before = kmatrix_lookup_edges.launches, kmatrix_node_out.launches
+    est = kmatrix_lookup_edges(*args, src, dst, **kw)
+    assert kmatrix_lookup_edges.launches == before[0] + 1
+    out = kmatrix_node_out(*args, src, **kw)
+    assert kmatrix_node_out.launches == before[1] + 1
+    torch.cuda.synchronize()
+    assert est.shape == out.shape == (n,)
+    assert est.dtype == out.dtype == torch.int32
+    flat = tkma.to_flat_layout(sk)
+    assert torch.equal(est, kmatrix_lookup_edges_plain(*args, src, dst, **kw))
+    assert torch.equal(est, tkm.edge_freq(flat, src, dst))
+    assert torch.equal(out, kmatrix_node_out_plain(*args, src, **kw))
+    assert torch.equal(out, tkm.node_out_freq(flat, src))
+
+
+@pytest.mark.parametrize("structure", list(STRUCTURES))
+def test_kmatrix_queries_on_card_take_2d_ids_and_equal_cpu(card, structure):
+    """kmatrix_accel.edge_freq / node_out_freq on 2-D ids (the path and
+    subgraph groups' [b, L]), int32 or int64: one launch each, the ids'
+    shape back, the CPU sketch's answers."""
+    sk = class_sketch(structure, depth=7, seed=11, device=card)
+    cpu = class_sketch(structure, depth=7, seed=11)
+    src = query_ids(sk, 33 * 4, 5).view(33, 4)
+    dst = query_ids(sk, 33 * 4, 6).view(33, 4)
+    for ids in ((src, dst), (src.long(), dst.long())):
+        before = kmatrix_lookup_edges.launches, kmatrix_node_out.launches
+        est = tkma.edge_freq(sk, *ids)
+        out = tkma.node_out_freq(sk, ids[0])
+        assert (kmatrix_lookup_edges.launches - before[0],
+                kmatrix_node_out.launches - before[1]) == (1, 1)
+        assert est.shape == out.shape == (33, 4)
+        assert torch.equal(est.cpu(), tkma.edge_freq(cpu, src.cpu(), dst.cpu()))
+        assert torch.equal(out.cpu(), tkma.node_out_freq(cpu, src.cpu()))
+
+
+def test_kmatrix_query_wrappers_check_inputs_on_card(card):
+    sk = class_sketch("cell", depth=7, seed=2, device=card)
+    ids = query_ids(sk, 64, 3)
+    kw = dict(route=sk.route, part_class=sk.part_class,
+              part_index=sk.part_index)
+    args = (sk.pools, sk.hashes.a, sk.hashes.b)
+    before = kmatrix_lookup_edges.launches, kmatrix_node_out.launches
+    with pytest.raises(ValueError, match="ids is on cpu"):
+        kmatrix_lookup_edges(*args, ids, ids.cpu(), **kw)
+    with pytest.raises(ValueError, match="part_class is on cpu"):
+        kmatrix_node_out(*args, ids, **{**kw, "part_class": sk.part_class.cpu()})
+    with pytest.raises(TypeError, match="ids must be"):
+        kmatrix_node_out(*args, ids.long(), **kw)
+    with pytest.raises(ValueError, match="1 to 16"):
+        kmatrix_node_out((sk.pools[0],) * 17, *args[1:], ids, **kw)
+    assert (kmatrix_lookup_edges.launches, kmatrix_node_out.launches) == before
+
+
+def test_engine_kmatrix_groups_launch_one_query_kernel_each(card):
+    """One ``execute`` of the serving cell's mix (the loadgen's default,
+    heavy sweeps of 16,384 ids) on a CUDA width-class kMatrix snapshot at
+    the cell's budget and depth: one kmatrix_lookup_edges launch per edge,
+    path and subgraph group, one kmatrix_node_out launch per node group and
+    per heavy chunk of 4,096; answers equal to ``direct_answers`` and to the
+    CPU engine's on the same counters."""
+    regs = {dev: SketchRegistry(depth=7, scale=0.1, device=dev)
+            for dev in ("cuda", "cpu")}
+    snaps = {}
+    for dev, reg in regs.items():
+        tenant = reg.open("cit-HepPh", "kmatrix", 512)
+        tenant.step(3)
+        snaps[dev] = tenant.publish()
+    reqs = synth_requests(512, WorkloadMix(), n_nodes=tenant.stream.spec.n_nodes,
+                          seed=12, heavy_universe=16384)
+    engine = QueryEngine()
+    before = kmatrix_lookup_edges.launches, kmatrix_node_out.launches
+    got = [r.value for r in engine.execute(snaps["cuda"], reqs)]
+    launched = (kmatrix_lookup_edges.launches - before[0],
+                kmatrix_node_out.launches - before[1])
+    families = {r.family for r in reqs}
+    edge_groups = len({engine._group_key(r) for r in reqs
+                       if r.family in ("edge_freq", "path_weight",
+                                       "subgraph_weight")})
+    sweeps = {(r.universe, r.threshold) for r in reqs
+              if r.family == "heavy_nodes"}
+    assert edge_groups == 3 and "node_out" in families and sweeps
+    assert launched == (edge_groups,
+                        1 + len(sweeps) * -(-16384 // engine.heavy_chunk))
+    assert gates.mismatched_indices(
+        got, eng.direct_answers(snaps["cuda"], reqs)) == []
+    assert gates.mismatched_indices(
+        got, [r.value for r in QueryEngine().execute(snaps["cpu"], reqs)]) == []
 
 
 def test_kmatrix_ingest_is_one_launch_per_batch(card):
